@@ -1,0 +1,332 @@
+#!/usr/bin/env python3
+"""Drive the torch port's main path once on one CUDA card and check it.
+
+Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
+
+Phases (each prints its lines; any failure exits non-zero, nothing falls back
+to the CPU):
+ 1. Device: card name and power limit, torch and CUDA versions, and the
+    build of the dyn8 kernel from monoloco_tpu_torch/ops/csrc/.
+ 2. Kernel vs plain at full width (hidden 1024, 3 stages, 34 -> 9, weights
+    from a seed with perturbed BN statistics) for m in M_ROWS.
+ 3. Row independence: kernel(x[:m]) == kernel(x)[:m] bit for bit.
+ 4. Main path through the CLI entry point: 64 images x 16 detections under
+    MONOLOCO_TPU_PRECISION=int8 (1024 padded rows, so int8 routes), then
+    the same run at float32 to bound the int8 deviation of dds_pred.
+ 5. Reference agreement: the f32 engine on the byte-compat checkpoint and
+    fixture against the reference's out.monoloco.json.
+ 6. Times on the card at 131072 x 34: kernel, plain dyn8, f32 folded MLP.
+The line before the last is the kernel report (JSON); the last line is
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HIDDEN, STAGES, IN_DIM, OUT_DIM = 1024, 3, 34, 9
+M_ROWS = (1, 77, 512, 4096, 131072)
+TIMING_ROWS = 131072
+SEED = 0
+D_CHANNEL = 2              # raw output channel of the distance mean
+
+# Kernel vs plain: both quantize identically; they differ only in the order
+# of the f32 sums of the bf16 layers (l0 over 34 terms, the heads over 1024),
+# and a last-ulp difference there can move an activation across a rounding
+# tie of the next quantization, one int8 step. So the mean error is held
+# tightly and the max loosely.
+TOL_MEAN_REL = 1e-4        # mean|kernel - plain| / mean|plain|
+TOL_MAX_ABS = 5e-2         # max|kernel - plain|, outputs are O(1)-O(10)
+DYN8_BUDGET = 0.02         # dds_pred mean relative deviation int8 vs f32
+BYTE_COMPAT_TOL = 1e-4     # 1e-3 for confs (tests/test_byte_compat.py)
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(REPO, 'tests', 'fixture_002282.png')
+GOLD = os.path.join(REPO, 'tests', 'goldens', 'byte_compat')
+
+
+def fail(msg):
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def smi_line():
+    res = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def make_weights():
+    """Loco params from SEED at full width, with BN statistics and affine
+    perturbed so that the fold is not the identity."""
+    from monoloco_tpu_torch.models import init_loco_params
+    params, bn_state = init_loco_params(SEED, IN_DIM, OUT_DIM, HIDDEN, STAGES)
+    rng = np.random.default_rng(SEED + 1)
+
+    def perturb(p, s):
+        shape = tuple(s['mean'].shape)
+        s['mean'] = torch.from_numpy(rng.normal(0, 0.1, shape).astype(np.float32))
+        s['var'] = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32))
+        p['scale'] = torch.from_numpy(rng.uniform(0.8, 1.2, shape).astype(np.float32))
+        p['bias'] = torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32))
+
+    perturb(params['bn1'], bn_state['bn1'])
+    perturb(params['bn3'], bn_state['bn3'])
+    for k in ('bn1', 'bn2'):
+        perturb(params['stages'][k], bn_state['stages'][k])
+    # Random weights predict distances of a few centimetres, where a relative
+    # budget on dds_pred measures noise; a trained net predicts metres. So
+    # the distance channel's output bias sits at a KITTI-like 15 m. The
+    # int8-vs-f32 difference itself comes from the layers before it.
+    params['w_fin']['b'][D_CHANNEL] += 15.0
+    return params, bn_state
+
+
+def make_inputs(m, device):
+    """(m, 34) MLP inputs the way the main path makes them: pifpaf-like
+    keypoints over a KITTI image, K^-1-normalized at z=10."""
+    from monoloco_tpu_torch.network import preprocess_monoloco, load_calibration
+    gen = torch.Generator().manual_seed(SEED + m)
+    centre = torch.rand((m, 2, 1), generator=gen) * torch.tensor([[1238.], [374.]])
+    spread = torch.rand((m, 2, 17), generator=gen) * torch.tensor([[60.], [160.]])
+    kps = torch.cat([centre + spread - spread.mean(2, keepdim=True),
+                     torch.rand((m, 1, 17), generator=gen)], dim=1)
+    kk = torch.tensor(load_calibration('kitti', (1238, 374)))
+    return preprocess_monoloco(kps.to(device), kk.to(device)).contiguous()
+
+
+def phase_device():
+    print("== phase 1: device", flush=True)
+    smi = smi_line()
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    from monoloco_tpu_torch.ops import _build
+    _build.load_library()
+    info = _build.BUILD_INFO
+    print(f"kernel library {os.path.relpath(info['path'], REPO)} built/loaded in "
+          f"{info['seconds']:.2f} s")
+    for line in info['nvcc_output'].splitlines():
+        if 'registers' in line or 'spill' in line or 'error' in line.lower():
+            print(f"  nvcc: {line.strip()}")
+    return smi
+
+
+def phase_kernel(packed, ms):
+    from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto, launches
+    print(f"== phase 2: kernel vs plain, hidden {HIDDEN}, {STAGES} stages "
+          f"(tolerance: mean rel {TOL_MEAN_REL}, max abs {TOL_MAX_ABS})", flush=True)
+    worst = 0.0
+    for m in ms:
+        x = make_inputs(m, 'cuda')
+        before = launches['dyn8_mlp']
+        out_k = fused_loco_forward_dyn8_auto(packed, x)
+        torch.cuda.synchronize()
+        check(launches['dyn8_mlp'] == before + 1, "kernel launch counter did not rise")
+        out_p = dyn8_forward_plain(packed, x)
+        check(out_k.shape == (m, OUT_DIM), f"kernel output shape {tuple(out_k.shape)}")
+        check(bool(torch.isfinite(out_k).all()), f"non-finite kernel output at m={m}")
+        diff = (out_k - out_p).abs()
+        max_abs = float(diff.max())
+        mean_rel = float(diff.mean() / out_p.abs().mean())
+        n_off = int((diff > 1e-5).sum())
+        print(f"m={m:6d}: max_abs_err {max_abs:.3e}  mean_rel_err {mean_rel:.3e}  "
+              f"elements >1e-5: {n_off}/{diff.numel()}", flush=True)
+        check(max_abs <= TOL_MAX_ABS and mean_rel <= TOL_MEAN_REL,
+              f"kernel disagrees with the plain version at m={m}")
+        worst = max(worst, max_abs)
+    return worst
+
+
+def phase_rows(packed):
+    from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto
+    print("== phase 3: row independence", flush=True)
+    x = make_inputs(512, 'cuda')
+    full = fused_loco_forward_dyn8_auto(packed, x)
+    for m in (1, 8, 77, 512):
+        part = fused_loco_forward_dyn8_auto(packed, x[:m].contiguous())
+        check(torch.equal(part, full[:m]), f"kernel(x[:{m}]) != kernel(x)[:{m}]")
+        print(f"m={m}: bit-equal")
+
+
+def _run_predict(precision, model, img_dir, out_dir):
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.ops import launches
+    os.environ['MONOLOCO_TPU_PRECISION'] = precision
+    launches['dyn8_mlp'] = 0
+    net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', 'mono',
+                    '--model', model, '--calibration', 'kitti',
+                    '--output_types', 'json', '-o', out_dir])
+    torch.cuda.synchronize()
+    return net, launches['dyn8_mlp']
+
+
+def _read_outputs(out_dir, n):
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith('.monoloco.json'))
+    check(len(files) == n, f"{len(files)} .monoloco.json files in {out_dir}, expected {n}")
+    dds = []
+    for f in files:
+        with open(os.path.join(out_dir, f)) as fh:
+            dic = json.load(fh)
+        for key in ('dds_pred', 'stds_ale', 'confs', 'xyz_pred', 'angles'):
+            vals = np.asarray(dic[key], np.float64)
+            check(vals.size > 0 and np.isfinite(vals).all(), f"{f}: bad {key}")
+        dds.append(np.asarray(dic['dds_pred'], np.float64))
+    return np.concatenate(dds)
+
+
+def phase_main_path(params, bn_state, tmp):
+    from monoloco_tpu_torch.models import save_checkpoint
+    print("== phase 4: main path, python -m monoloco_tpu_torch.run predict", flush=True)
+    model = os.path.join(tmp, f'loco_h{HIDDEN}.pkl')
+    save_checkpoint(model, params, bn_state, meta={'seed': SEED})
+    img_dir = os.path.join(tmp, 'images')
+    os.makedirs(img_dir)
+    for i in range(64):
+        dst = os.path.join(img_dir, f'im{i:03d}.png')
+        shutil.copy(FIXTURE, dst)
+        shutil.copy(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json'),
+                    dst + '.pifpaf.json')
+    t0 = time.perf_counter()
+    net, n_launch = _run_predict('int8', model, img_dir, os.path.join(tmp, 'out_int8'))
+    wall = time.perf_counter() - t0
+    print(f"int8 run: {wall:.2f} s wall, dispatches {net.n_dispatches}, "
+          f"int8 dispatches {net.n_dispatches_int8}, dyn8 kernel launches {n_launch}",
+          flush=True)
+    check(net.n_dispatches_int8 > 0, "no dispatch routed to int8")
+    check(n_launch > 0, "the main path never launched the dyn8 kernel")
+    d8 = _read_outputs(os.path.join(tmp, 'out_int8'), 64)
+    net32, n32 = _run_predict('float32', model, img_dir, os.path.join(tmp, 'out_f32'))
+    check(net32.n_dispatches_int8 == 0 and n32 == 0, "float32 run touched the kernel")
+    d32 = _read_outputs(os.path.join(tmp, 'out_f32'), 64)
+    rel = float(np.abs(d8 - d32).mean() / np.abs(d32).mean())
+    print(f"dds_pred int8 vs float32: mean relative deviation {rel:.3e} "
+          f"(budget {DYN8_BUDGET}) over {d8.size} detections")
+    check(rel < DYN8_BUDGET, "int8 dds_pred outside the dyn8 budget")
+    return n_launch
+
+
+def phase_reference():
+    from monoloco_tpu_torch.network import Loco, load_calibration, preprocess_pifpaf
+    print("== phase 5: f32 engine vs the reference golden", flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    with open(os.path.join(GOLD, 'manifest.json')) as f:
+        im_size = tuple(json.load(f)['im_size'])
+    with open(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json')) as f:
+        anns = json.load(f)
+    kk = load_calibration('kitti', im_size)
+    net = Loco(model=os.path.join(GOLD, 'model_tpu.pkl'), mode='mono', device='cuda')
+    boxes, keypoints = preprocess_pifpaf(anns, im_size=im_size)
+    ours = net.post_process(net.forward(keypoints, kk), boxes, keypoints, kk)
+    with open(os.path.join(GOLD, 'out.monoloco.json')) as f:
+        ref = json.load(f)
+    check(set(ref) <= set(ours) and set(ours) - set(ref) <= {'indices'},
+          f"key sets differ: {sorted(ours)} vs {sorted(ref)}")
+    worst = 0.0
+    for key, ref_v in ref.items():
+        check(len(ours[key]) == len(ref_v), f"{key}: length differs")
+        if key == 'gt':
+            check(list(ours[key]) == list(ref_v), "gt differs")
+            continue
+        a = np.asarray(ours[key], np.float64)
+        b = np.asarray(ref_v, np.float64)
+        tol = 1e-3 if key == 'confs' else BYTE_COMPAT_TOL
+        check(a.shape == b.shape and np.allclose(a, b, rtol=tol, atol=tol),
+              f"{key} differs from the golden: max {np.max(np.abs(a - b)) if a.size else 0}")
+        if a.size:
+            worst = max(worst, float(np.max(np.abs(a - b))))
+    print(f"all {len(ref)} keys within tolerance; max abs diff {worst:.3e}")
+
+
+def _time_ms(fn, x):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_times(packed, folded_net, smi):
+    from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto
+    print(f"== phase 6: times at {TIMING_ROWS} x {IN_DIM} on {smi}", flush=True)
+    x = make_inputs(TIMING_ROWS, 'cuda')
+    paths = {
+        'dyn8 kernel': lambda v: fused_loco_forward_dyn8_auto(packed, v),
+        'dyn8 plain': lambda v: dyn8_forward_plain(packed, v),
+        'f32 folded (torch.matmul)': folded_net,
+    }
+    times = {name: [] for name in paths}
+    with torch.inference_mode():
+        for fn in paths.values():          # warm-up
+            for _ in range(2):
+                fn(x)
+        torch.cuda.synchronize()
+        for _ in range(7):                  # in turns
+            for name, fn in paths.items():
+                times[name].append(_time_ms(fn, x))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    for name, v in times.items():
+        print(f"{name}: median {med[name]:.4f} ms over {len(v)} runs "
+              f"(min {min(v):.4f}, max {max(v):.4f})")
+    return med
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    try:
+        import monoloco_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        fail(f"run from the root of a monoloco_tpu checkout ({exc})")
+    check('jax' not in sys.modules, "jax was imported")
+    from monoloco_tpu_torch.models import fold_eval_params, FoldedLoco
+    from monoloco_tpu_torch.ops import pack_folded_weights_w8
+
+    smi = phase_device()
+    params, bn_state = make_weights()
+    to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()}
+                         if isinstance(t, dict) else t.cuda())
+    folded = fold_eval_params(to_cuda(params), to_cuda(bn_state))
+    packed = pack_folded_weights_w8(folded)
+    max_err = phase_kernel(packed, M_ROWS)
+    phase_rows(packed)
+    with tempfile.TemporaryDirectory() as tmp:
+        n_launch = phase_main_path(params, bn_state, tmp)
+    phase_reference()
+    med = phase_times(packed, FoldedLoco(folded).cuda(), smi)
+    check('jax' not in sys.modules, "jax was imported")
+
+    report = {"kernels": [{
+        "name": "dyn8_mlp", "route": "cuda",
+        "source": "monoloco_tpu_torch/ops/csrc/dyn8_mlp.cu",
+        "replaces": "monoloco_tpu/ops/fused_mlp.py:474",
+        "launches": n_launch, "max_abs_err": max_err,
+        "ms": med['dyn8 kernel'], "plain_ms": med['dyn8 plain'],
+        "f32_matmul_ms": med['f32 folded (torch.matmul)'],
+    }]}
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps(report))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,8 @@
+from .camera import (
+    pixel_to_camera,
+    get_keypoints,
+    back_correct_angles,
+    to_cartesian,
+)
+from .iou import iou_matrix, get_iou_matches, reorder_matches
+from .host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance

@@ -1,0 +1,201 @@
+"""The Loco (MonoLoco++) residual MLP in torch: init, eval forward, BN fold.
+
+Counterpart of `monoloco_tpu/models/loco.py`. Parameters are nested dicts of
+tensors with the JAX package's keys and its (in, out) weight layout, so
+`x @ W` and the tests compare like with like; the residual stages are stacked
+along a leading axis (S, ...). This slice serves and does not train, so only
+the eval forward (BN in eval mode, no dropout) is here.
+
+`fold_eval_params` folds eval-mode BN into the preceding linear; the folded
+forward is the chain the dyn8 kernel (ops/fused_mlp.py) computes:
+  y = relu(x @ W0 + b0)
+  for each stage: y += relu(relu(y @ Wa + ba) @ Wb + bb)
+  y2 = y @ W2 + b2;  aux = y2 @ Waux + baux
+  fin = relu(y2 @ W3f + b3f) @ Wfin + bfin
+  out = [fin, aux]
+"""
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def _init_linear(rng, fan_in, fan_out):
+    bound = 1.0 / math.sqrt(fan_in)
+    return {
+        'w': torch.from_numpy(rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32)),
+        'b': torch.from_numpy(rng.uniform(-bound, bound, (fan_out,)).astype(np.float32)),
+    }
+
+
+def _stack(trees):
+    """Stack a list of equally-shaped nested dicts along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_loco_params(seed, input_size, output_size, linear_size=1024, num_stage=3):
+    """Initialize the Loco (MonoLoco++) model from a numpy seed with torch
+    nn.Linear's default U(-1/sqrt(fan_in), 1/sqrt(fan_in)); BN scale 1, bias
+    0, running mean 0, var 1. Returns (params, bn_state)."""
+    rng = np.random.default_rng(seed)
+    h = linear_size
+
+    def bn():
+        return {'scale': torch.ones(h), 'bias': torch.zeros(h)}
+
+    def bn_state():
+        return {'mean': torch.zeros(h), 'var': torch.ones(h)}
+
+    params = {
+        'w1': _init_linear(rng, input_size, h),
+        'bn1': bn(),
+        'w2': _init_linear(rng, h, h),
+        'w3': _init_linear(rng, h, h),
+        'bn3': bn(),
+        'w_aux': _init_linear(rng, h, 1),
+        'w_fin': _init_linear(rng, h, output_size - 1),
+        'stages': _stack([
+            {'w1': _init_linear(rng, h, h), 'bn1': bn(),
+             'w2': _init_linear(rng, h, h), 'bn2': bn()}
+            for _ in range(num_stage)
+        ]),
+    }
+    state = {
+        'bn1': bn_state(),
+        'bn3': bn_state(),
+        'stages': _stack([{'bn1': bn_state(), 'bn2': bn_state()}
+                          for _ in range(num_stage)]),
+    }
+    return params, state
+
+
+def _dense(p, x):
+    return x @ p['w'] + p['b']
+
+
+def _batch_norm_eval(p, state, x):
+    y = (x - state['mean']) * torch.rsqrt(state['var'] + BN_EPS)
+    return y * p['scale'] + p['bias']
+
+
+def loco_forward(params, bn_state, x):
+    """Eval forward of the unfolded Loco model (BN from running stats, no
+    dropout). Returns (m, out) outputs ordered [fin..., aux]."""
+    y = torch.relu(_batch_norm_eval(params['bn1'], bn_state['bn1'],
+                                    _dense(params['w1'], x)))
+    sp, ss = params['stages'], bn_state['stages']
+    for i in range(sp['w1']['w'].shape[0]):
+        def at(tree):
+            return {k: at(v) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+        p, s = at(sp), at(ss)
+        h = torch.relu(_batch_norm_eval(p['bn1'], s['bn1'], _dense(p['w1'], y)))
+        h = torch.relu(_batch_norm_eval(p['bn2'], s['bn2'], _dense(p['w2'], h)))
+        y = y + h
+    y2 = _dense(params['w2'], y)
+    aux = _dense(params['w_aux'], y2)
+    y3 = torch.relu(_batch_norm_eval(params['bn3'], bn_state['bn3'],
+                                     _dense(params['w3'], y2)))
+    fin = _dense(params['w_fin'], y3)
+    return torch.cat([fin, aux], dim=1)
+
+
+def _fold(linear, bn, bn_state):
+    """Fold eval-mode BN into the preceding linear: y = BN(xW + b). Works for
+    single (in, out) and stacked (S, in, out) layers."""
+    scale = bn['scale'] / torch.sqrt(bn_state['var'] + BN_EPS)
+    return {
+        'w': linear['w'] * scale[..., None, :],
+        'b': (linear['b'] - bn_state['mean']) * scale + bn['bias'],
+    }
+
+
+def fold_eval_params(params, bn_state, arch='loco'):
+    """Collapse BN into affine layers for inference ('loco', or the legacy
+    'monoloco' net whose head is a single Linear)."""
+    folded = {
+        'l0': _fold(params['w1'], params['bn1'], bn_state['bn1']),
+        'stages': {
+            'a': _fold(params['stages']['w1'], params['stages']['bn1'],
+                       bn_state['stages']['bn1']),
+            'b': _fold(params['stages']['w2'], params['stages']['bn2'],
+                       bn_state['stages']['bn2']),
+        },
+        'w2': dict(params['w2']),
+    }
+    if arch == 'monoloco':
+        return folded
+    if arch != 'loco':
+        raise ValueError(arch)
+    folded.update({
+        'w_aux': dict(params['w_aux']),
+        'w3f': _fold(params['w3'], params['bn3'], bn_state['bn3']),
+        'w_fin': dict(params['w_fin']),
+    })
+    return folded
+
+
+def folded_forward(folded, x, arch='loco'):
+    """Plain f32 folded eval forward (`torch.matmul`, as the JAX package leaves
+    this path to XLA)."""
+    y = torch.relu(_dense(folded['l0'], x))
+    st = folded['stages']
+    for i in range(st['a']['w'].shape[0]):
+        h = torch.relu(y @ st['a']['w'][i] + st['a']['b'][i])
+        h = torch.relu(h @ st['b']['w'][i] + st['b']['b'][i])
+        y = y + h
+    if arch == 'monoloco':
+        return _dense(folded['w2'], y)
+    y2 = _dense(folded['w2'], y)
+    aux = _dense(folded['w_aux'], y2)
+    fin = _dense(folded['w_fin'], torch.relu(_dense(folded['w3f'], y2)))
+    return torch.cat([fin, aux], dim=1)
+
+
+def _flatten(tree, prefix=''):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f'{prefix}{k}.'))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflatten(flat):
+    tree = {}
+    for key, v in flat.items():
+        *path, leaf = key.split('.')
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+class FoldedLoco(nn.Module):
+    """The folded eval network as a module: the folded tensors are buffers
+    (the slice serves and does not train), so `.to(device)` moves them and
+    `forward` is `folded_forward`."""
+
+    def __init__(self, folded, arch='loco'):
+        super().__init__()
+        self.arch = arch
+        self._names = {}
+        for i, (key, v) in enumerate(_flatten(folded).items()):
+            name = f'folded_{i}'
+            self._names[name] = key
+            self.register_buffer(name, torch.as_tensor(v, dtype=torch.float32))
+
+    def folded(self):
+        """The folded dict ({'l0': {'w', 'b'}, 'stages': ..., ...})."""
+        return _unflatten({key: getattr(self, name)
+                           for name, key in self._names.items()})
+
+    def forward(self, x):
+        return folded_forward(self.folded(), x, arch=self.arch)

@@ -1,0 +1,63 @@
+"""Output decoding: raw network channels -> physical quantities (torch).
+
+Counterpart of `monoloco_tpu/network/decode.py`. Channel layout of the raw
+MonoLoco++/MonStereo outputs (m, 9|10): 0 theta, 1 psi, 2 d mean,
+3 log-spread, 4-6 h/w/l, 7-8 sin/cos of the allocentric yaw, 9 stereo-aux
+logit.
+"""
+
+import torch
+
+from ..geometry import to_cartesian, back_correct_angles
+
+_TASK_SLICES = {
+    'x': (0, 1), 'y': (1, 2), 'd': (2, 4), 'h': (4, 5), 'w': (5, 6),
+    'l': (6, 7), 'ori': (7, 9), 'aux': (9, 10),
+}
+
+
+def unnormalize_bi(loc):
+    """(m, 2) [mu, log-spread] -> absolute Laplace spread b = exp(b_hat) * mu."""
+    return torch.exp(loc[:, 1:2]) * loc[:, 0:1]
+
+
+def extract_outputs(outputs):
+    """Decode raw outputs into xyzd, d, bi, yaw (alpha, ry), h/w/l, ori and,
+    for 10-channel outputs, the sigmoid of aux. z is clamped at 0 where
+    d^2 < x^2 + y^2, as in the JAX package."""
+    outputs = outputs.float()
+    dic_out = {k: outputs[:, slice(*s)] for k, s in _TASK_SLICES.items()
+               if k != 'aux' or outputs.shape[1] == 10}
+    bi = unnormalize_bi(dic_out['d'])
+
+    x = to_cartesian(outputs[:, 0:3], mode='x')
+    y = to_cartesian(outputs[:, 0:3], mode='y')
+    d = dic_out['d'][:, 0:1]
+    z = torch.sqrt(torch.clamp(d ** 2 - x ** 2 - y ** 2, min=0.0))
+    xyzd = torch.cat([x, y, z, d], dim=1)
+
+    yaw_pred = torch.atan2(dic_out['ori'][:, 0:1], dic_out['ori'][:, 1:2])
+    yaw_orig = back_correct_angles(yaw_pred, xyzd[:, 0:3])
+
+    out = {
+        'xyzd': xyzd, 'd': d, 'bi': bi,
+        'h': dic_out['h'], 'w': dic_out['w'], 'l': dic_out['l'],
+        'ori': dic_out['ori'], 'yaw': (yaw_pred, yaw_orig),
+    }
+    if outputs.shape[1] == 10:
+        out['aux'] = torch.sigmoid(dic_out['aux'])
+    return out
+
+
+def extract_outputs_mono(outputs):
+    """Decoding for the monoloco_p variant: direct xyz + [z, log-spread]."""
+    outputs = outputs.float()
+    raw = {'xyz': outputs[:, 0:3], 'zb': outputs[:, 2:4],
+           'h': outputs[:, 4:5], 'w': outputs[:, 5:6], 'l': outputs[:, 6:7],
+           'ori': outputs[:, 7:9]}
+    bi = unnormalize_bi(raw['zb'])
+    dd = torch.linalg.vector_norm(raw['xyz'], dim=1, keepdim=True)
+    xyzd = torch.cat([raw['xyz'], dd], dim=1)
+    yaw_pred = torch.atan2(raw['ori'][:, 0:1], raw['ori'][:, 1:2])
+    yaw_orig = back_correct_angles(yaw_pred, xyzd[:, 0:3])
+    return {**raw, 'xyzd': xyzd, 'd': dd, 'bi': bi, 'yaw': (yaw_pred, yaw_orig)}

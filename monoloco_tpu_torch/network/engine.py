@@ -1,0 +1,313 @@
+"""Inference engine: the mono `Loco` of `monoloco_tpu/network/engine.py` in
+torch.
+
+Per dispatch, on the engine's device: K^-1 keypoint normalization, the
+BN-folded residual MLP, and the physical decode. Everything after (ground
+truth matching, output dict assembly) is host numpy on a handful of
+detections.
+
+MLP routing (`_mlp_forward`), as in the JAX package:
+ - default / float32: the plain f32 folded forward (`FoldedLoco`, torch.matmul);
+ - int8: the fused dynamic-int8 kernel (ops/fused_mlp.py) for dispatches of
+   at least `_INT8_MIN_ROWS` padded rows, the f32 path below that.
+`_INT8_MIN_ROWS = 512` is INHERITED from the JAX package, where it was the
+measured dyn8/bf16 crossover on a TPU v5e. It has not been measured on the
+H100 (MONOLOCO_TPU_INT8_MIN_ROWS overrides it).
+
+Detection counts pad to power-of-two buckets (`_bucket`): the JAX package
+needs them to bound recompiles, and here routing reads the padded row count,
+so both engines route a given batch the same way.
+
+Not ported yet, and refused with NotImplementedError: stereo (ROADMAP
+Queue 1 item 5), MC-dropout epistemic passes (item 6), device meshes
+(item 12).
+"""
+
+import math
+import os
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..geometry import get_iou_matches, reorder_matches
+from ..geometry.host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
+from ..models import (FoldedLoco, fold_eval_params, folded_forward, load_checkpoint,
+                      params_from_numpy)
+from ..ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
+from ..utils.precision import serving_precision
+from .decode import extract_outputs, extract_outputs_mono, unnormalize_bi
+from .preprocess import preprocess_monoloco
+
+_INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '512'))
+
+
+def _int8_routes(weights, n_rows):
+    """Whether an n_rows dispatch runs the dyn8 kernel. Shared by
+    `_mlp_forward` and the dispatch counters, so the two never disagree."""
+    return (isinstance(weights, dict)
+            and weights.get('packed_int8') is not None
+            and n_rows >= _INT8_MIN_ROWS)
+
+
+def _mlp_forward(weights, inputs, arch):
+    """Eval MLP. `weights` is Loco's {'folded': FoldedLoco, 'packed_int8':
+    dyn8 weights or None}, or a bare folded dict from direct callers."""
+    if isinstance(weights, dict) and 'folded' in weights:
+        if _int8_routes(weights, inputs.shape[0]):
+            return fused_loco_forward_dyn8_auto(weights['packed_int8'], inputs)
+        return weights['folded'](inputs)
+    return folded_forward(weights, inputs, arch=arch)
+
+
+def _bucket(n, minimum=4):
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_rows(arr, size):
+    m = arr.shape[0]
+    if m == size:
+        return np.asarray(arr, np.float32)
+    out = np.zeros((size,) + arr.shape[1:], np.float32)
+    out[:m] = arr
+    return out
+
+
+def _to_host(dic):
+    return {k: (tuple(t.cpu().numpy() for t in v) if k == 'yaw' else v.cpu().numpy())
+            for k, v in dic.items()}
+
+
+def default_device():
+    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+
+
+class Loco:
+    """Load a localization net and run preprocess -> forward -> postprocess."""
+
+    NETS = ('monoloco_pp', 'monoloco_p', 'monoloco')
+
+    def __init__(self, model, mode='mono', net=None, device=None, n_dropout=0,
+                 mesh=None):
+        if mode != 'mono':
+            raise NotImplementedError(
+                "stereo (MonStereo) is not ported yet: ROADMAP Queue 1 item 5")
+        if n_dropout > 0:
+            raise NotImplementedError(
+                "MC-dropout epistemic passes are not ported yet: ROADMAP Queue 1 item 6")
+        if mesh is not None:
+            raise NotImplementedError(
+                "device meshes are not ported yet: ROADMAP Queue 1 item 12")
+        self.net = 'monoloco_pp' if net is None else net
+        if self.net not in self.NETS:
+            raise ValueError(f"mono net not recognized: {self.net}")
+        self.arch = 'monoloco' if self.net in ('monoloco', 'monoloco_p') else 'loco'
+        self.device = torch.device(device) if device is not None else default_device()
+
+        if isinstance(model, (str, os.PathLike)):
+            self.params, self.bn_state, _ = load_checkpoint(model, device=self.device)
+        elif isinstance(model, tuple):
+            self.params, self.bn_state = params_from_numpy(*model, device=self.device)
+        else:
+            raise TypeError("model must be a checkpoint path or a (params, bn_state) tuple")
+        # The checkpoint is the source of truth for the architecture size.
+        self.linear_size = int(self.params['w1']['w'].shape[1])
+        self.n_stage = int(self.params['stages']['w1']['w'].shape[0])
+        self.folded = fold_eval_params(self.params, self.bn_state, arch=self.arch)
+        self.precision = serving_precision()
+        # Weights are stored f32 (the JAX package casts to bf16 only on a TPU);
+        # under int8 the dyn8 weights are packed once, here.
+        self.mlp_weights = {'folded': FoldedLoco(self.folded, self.arch).to(self.device),
+                            'packed_int8': None}
+        if (self.precision == 'int8' and self.arch == 'loco'
+                and self.linear_size % 128 == 0):
+            self.mlp_weights['packed_int8'] = pack_folded_weights_w8(self.folded)
+        # Which MLP path each dispatch ran: the int8 kernel only engages at
+        # >= _INT8_MIN_ROWS padded rows.
+        self.n_dispatches = 0
+        self.n_dispatches_int8 = 0
+
+    def _count_dispatch(self, n_rows):
+        self.n_dispatches += 1
+        if _int8_routes(self.mlp_weights, n_rows):
+            self.n_dispatches_int8 += 1
+
+    def _mono_forward(self, kps, kk):
+        """Keypoints (m, 3, 17) with kk (3, 3), or an image batch (B, m, 3,
+        17) with kk (B, 3, 3), on the device -> the decoded output dict over
+        all B*m rows."""
+        if self.net == 'monoloco':
+            inputs = preprocess_monoloco(kps, kk, zero_center=True)
+            raw = _mlp_forward(self.mlp_weights, inputs, self.arch)
+            return {'d': raw[:, 0:1], 'bi': unnormalize_bi(raw)}
+        inputs = preprocess_monoloco(kps, kk)
+        raw = _mlp_forward(self.mlp_weights, inputs.reshape(-1, inputs.shape[-1]),
+                           self.arch)
+        if self.net == 'monoloco_p':
+            return extract_outputs_mono(raw)
+        return extract_outputs(raw)
+
+    def forward(self, keypoints, kk):
+        """One image: keypoints (m, 3, 17), kk (3, 3) -> dict of numpy arrays
+        (m rows each; 'yaw' is a (pred, egocentric) pair), epi zeros."""
+        if keypoints is None or len(keypoints) == 0:
+            return None
+        kps = np.asarray(keypoints, np.float32)
+        m = kps.shape[0]
+        bm = _bucket(m)
+        self._count_dispatch(bm)
+        with torch.inference_mode():
+            dic = _to_host(self._mono_forward(
+                torch.from_numpy(_pad_rows(kps, bm)).to(self.device),
+                torch.as_tensor(np.asarray(kk, np.float32), device=self.device)))
+        dic_out = {k: (v[0][:m], v[1][:m]) if k == 'yaw' else v[:m]
+                   for k, v in dic.items()}
+        dic_out['epi'] = [0.] * m
+        return dic_out
+
+    def forward_batch(self, keypoints_list, kk_list):
+        """Run many images in one dispatch (see forward_batch_async)."""
+        return self.forward_batch_async(keypoints_list, kk_list)()
+
+    def forward_batch_async(self, keypoints_list, kk_list):
+        """Launch one dispatch over many images; returns a zero-arg finalize()
+        producing the per-image output dicts (None for an image without
+        detections), identical in layout to `forward`'s.
+
+        CUDA launches are asynchronous, so the caller can prepare the next
+        chunk or write files before finalize() waits for this one. Images pad
+        to shared detection buckets, as in the JAX package.
+        """
+        if self.net not in ('monoloco_pp', 'monoloco_p'):
+            raise ValueError("forward_batch supports the monoloco_pp and monoloco_p nets")
+        counts = [0 if k is None else len(k) for k in keypoints_list]
+        n_img = len(keypoints_list)
+        if n_img == 0:
+            return lambda: []
+        m_bucket = _bucket(max(max(counts), 1))
+        b_bucket = _bucket(n_img, minimum=1)
+        kps = np.zeros((b_bucket, m_bucket, 3, 17), np.float32)
+        kks = np.zeros((b_bucket, 3, 3), np.float32)
+        kks[:] = np.eye(3)
+        for i, (k, kk) in enumerate(zip(keypoints_list, kk_list)):
+            if counts[i]:
+                kps[i, :counts[i]] = np.asarray(k, np.float32)
+            kks[i] = np.asarray(kk, np.float32)
+        self._count_dispatch(b_bucket * m_bucket)
+        with torch.inference_mode():
+            dic_dev = self._mono_forward(torch.from_numpy(kps).to(self.device),
+                                         torch.from_numpy(kks).to(self.device))
+
+        def finalize():
+            dic = _to_host(dic_dev)
+            outs = []
+            for i in range(n_img):
+                m = counts[i]
+                if m == 0:
+                    outs.append(None)
+                    continue
+                sl = slice(i * m_bucket, i * m_bucket + m)
+                dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
+                         for k, v in dic.items()}
+                dic_i['epi'] = [0.] * m
+                outs.append(dic_i)
+            return outs
+
+        return finalize
+
+    @staticmethod
+    def post_process(dic_in, boxes, keypoints, kk, dic_gt=None, iou_min=0.3,
+                     reorder=True, verbose=False):
+        """Assemble the final per-image output dict (the reference's key set
+        and confidence formula conf = 0.035*box_conf/(bi/distance)). A copy of
+        the JAX package's host code, defaultdict quirks included."""
+        dic_out = defaultdict(list)
+        if dic_in is None:
+            return dic_out
+
+        if dic_gt:
+            boxes_gt = dic_gt['boxes']
+            dds_gt = [el[3] for el in dic_gt['ys']]
+            matches = get_iou_matches(boxes, boxes_gt, iou_min=iou_min)
+            if verbose:
+                print(f"found {len(matches)} matches with ground-truth")
+            idxs_matches = [el[0] for el in matches]
+            not_matches = [idx for idx, _ in enumerate(boxes) if idx not in idxs_matches]
+        else:
+            matches = []
+            not_matches = list(range(len(boxes)))
+            if verbose:
+                print("NO ground-truth associated")
+
+        if reorder and matches:
+            matches = reorder_matches(matches, boxes, mode='left_right')
+
+        all_idxs = [idx for idx, _ in matches] + not_matches
+        dic_out['gt'] = [True] * len(matches) + [False] * len(not_matches)
+        # Original annotation index of each output row.
+        dic_out['indices'] = [int(i) for i in all_idxs]
+
+        kps_np = np.asarray(keypoints, np.float32)
+        uv_shoulders = np_get_keypoints(kps_np, 'shoulder')
+        uv_heads = np_get_keypoints(kps_np, 'head')
+        uv_centers = np_get_keypoints(kps_np, 'center')
+        xy_centers = np_pixel_to_camera(uv_centers, kk, 1)
+
+        has_yaw = 'yaw' in dic_in
+        if has_yaw:
+            yaw_pred = np.asarray(dic_in['yaw'][0]).reshape(-1)
+            yaw_orig = np.asarray(dic_in['yaw'][1]).reshape(-1)
+        has_aux = 'aux' in dic_in
+
+        for idx in all_idxs:
+            kps = keypoints[idx]
+            box = boxes[idx]
+            dd_pred = float(np.asarray(dic_in['d'][idx]).reshape(-1)[0])
+            bi = float(np.asarray(dic_in['bi'][idx]).reshape(-1)[0])
+            var_y = float(np.asarray(dic_in['epi'][idx]).reshape(-1)[0])
+            uu_s, vv_s = uv_shoulders[idx][0:2]
+            uu_c, vv_c = uv_centers[idx][0:2]
+            uu_h, vv_h = uv_heads[idx][0:2]
+            xyz_pred = np_xyz_from_distance(dd_pred, xy_centers[idx])[0]
+            distance = math.sqrt(float(xyz_pred[0]) ** 2 + float(xyz_pred[1]) ** 2
+                                 + float(xyz_pred[2]) ** 2)
+            conf = 0.035 * (box[-1]) / (bi / distance)
+
+            dic_out['boxes'].append(box)
+            dic_out['confs'].append(conf)
+            dic_out['dds_pred'].append(dd_pred)
+            dic_out['stds_ale'].append(bi)
+            dic_out['stds_epi'].append(var_y)
+            dic_out['xyz_pred'].append([float(x) for x in xyz_pred])
+            dic_out['uv_kps'].append(kps)
+            dic_out['uv_centers'].append([round(float(uu_c)), round(float(vv_c))])
+            dic_out['uv_shoulders'].append([round(float(uu_s)), round(float(vv_s))])
+            dic_out['uv_heads'].append([round(float(uu_h)), round(float(vv_h))])
+
+            if has_yaw:
+                dic_out['angles'].append(float(yaw_pred[idx]))
+                dic_out['angles_egocentric'].append(float(yaw_orig[idx]))
+                if has_aux:
+                    dic_out['aux'].append(float(np.asarray(dic_in['aux'][idx]).reshape(-1)[0]))
+                else:
+                    # Schema quirk of the reference: its defaultdict touches
+                    # dic_out['aux'] before the KeyError on dic_in['aux'], so
+                    # mono outputs carry an empty "aux": [] that the
+                    # byte-compat golden pins.
+                    dic_out['aux']  # noqa: B018 — deliberate defaultdict touch
+            else:
+                # Same quirk for the legacy 2-output net: 'angles' is touched
+                # before the KeyError on dic_in['yaw'].
+                dic_out['angles']  # noqa: B018 — deliberate defaultdict touch
+
+        for idx, idx_gt in matches:
+            dd_real = dds_gt[idx_gt]
+            xyz_real = np_xyz_from_distance(dd_real, xy_centers[idx])
+            dic_out['dds_real'].append(dd_real)
+            dic_out['boxes_gt'].append(boxes_gt[idx_gt])
+            dic_out['xyz_real'].append([float(x) for x in xyz_real.squeeze()])
+        return dic_out
+

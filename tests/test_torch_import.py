@@ -1,0 +1,74 @@
+"""The torch port never imports jax (nor optax, which the JAX package's
+trainer checkpoints reference).
+
+This test process has jax loaded already (tests/conftest.py), so the check
+runs in a fresh interpreter: it imports every module of the port, runs the
+CPU slice once (predict on a fixture copy, f32 and int8), and then asserts
+that neither jax nor optax is in sys.modules.
+"""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+PORT = os.path.join(REPO, 'monoloco_tpu_torch')
+
+_SCRIPT = textwrap.dedent("""
+    import importlib, os, pkgutil, shutil, sys, tempfile
+    import monoloco_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(monoloco_tpu_torch.__path__,
+                                                   'monoloco_tpu_torch.')]
+    for name in names:
+        importlib.import_module(name)
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.network import engine
+    here, model = sys.argv[1], sys.argv[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(3):
+            dst = os.path.join(tmp, f'im{i}.png')
+            shutil.copy(os.path.join(here, 'fixture_002282.png'), dst)
+            shutil.copy(os.path.join(here, 'fixture_002282.pifpaf.json'),
+                        dst + '.pifpaf.json')
+        args = ['predict', '--glob', os.path.join(tmp, '*.png'), '--model', model,
+                '--calibration', 'kitti', '--disable-cuda']
+        net = run.main(args + ['-o', os.path.join(tmp, 'f32')])
+        assert net.n_dispatches == 1 and net.n_dispatches_int8 == 0
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
+        engine._INT8_MIN_ROWS = 8
+        net = run.main(args + ['-o', os.path.join(tmp, 'int8')])
+        assert net.n_dispatches_int8 == 1
+        assert len(os.listdir(os.path.join(tmp, 'int8'))) == 3
+    leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax'))
+    print('MODULES', len(names), 'LEAKED', leaked)
+    assert not leaked, leaked
+""")
+
+
+def test_port_imports_and_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run(
+        [sys.executable, '-c', _SCRIPT, HERE,
+         os.path.join(HERE, 'goldens', 'byte_compat', 'model_tpu.pkl')],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert 'LEAKED []' in res.stdout
+    n_modules = int(re.search(r'MODULES (\d+)', res.stdout).group(1))
+    assert n_modules >= 14
+
+
+def test_no_jax_import_statement_in_the_port():
+    pattern = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|optax|monoloco_tpu)(\.|\s|$)',
+                         re.M)
+    offenders = []
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith('.py'):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    if pattern.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders
