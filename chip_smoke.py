@@ -15,9 +15,20 @@ to the CPU):
     the same run at float32 to bound the int8 deviation of dds_pred.
  5. Reference agreement: the f32 engine on the byte-compat checkpoint and
     fixture against the reference's out.monoloco.json.
- 6. Times on the card at 131072 x 34: kernel, plain dyn8, f32 folded MLP.
-The line before the last is the kernel report (JSON); the last line is
-{"ok": true, "device": {...}}.
+ 6. Times on the card at 131072 x 34: every kernel and its plain version,
+    and the f32 and bf16 folded MLPs in `torch.matmul`.
+ 7. The K1 (bf16 and f32 weights), static a8w8 (K4) and w8a16 (K5) kernels
+    against their plain versions at full width for m in M_ROWS, and at
+    68 -> 10 for m = 77; row independence bit for bit; launch counters.
+ 8. The serving bench and the ablation tools, as a user runs them:
+    `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
+    int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
+    pallas-f32; `tools.bench_pallas_crossover` at hidden 1024, batch 256 and
+    131072. Each JSON line is printed; each checksum must be finite and
+    each kernel variant must have launched its kernel.
+The launch counts of the report are those of the main-path runs (phases 4
+and 8, each with every count set to 0 just before it). The line before the
+last is the kernel report (JSON); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -47,6 +58,19 @@ TOL_MEAN_REL = 1e-4        # mean|kernel - plain| / mean|plain|
 TOL_MAX_ABS = 5e-2         # max|kernel - plain|, outputs are O(1)-O(10)
 DYN8_BUDGET = 0.02         # dds_pred mean relative deviation int8 vs f32
 BYTE_COMPAT_TOL = 1e-4     # 1e-3 for confs (tests/test_byte_compat.py)
+# Phase 7, kernel vs plain (the rules of tests/test_torch_kernels_cuda.py):
+#  int8 activations (K4): as dyn8's test, <= 10% of the rows with an output
+#    off by more than 1e-5 (1 + |ref|), max abs 5e-2, mean <= 1e-3 of the
+#    mean output;
+#  bf16 activations (K1-bf16, K5): each layer rounds its input to bf16, and
+#    the tensor cores' f32 sums differ from the plain version's exact ones
+#    in the last bits, so roundings flip in most rows: max abs 5e-2, mean
+#    <= 5e-3 of the mean output, and no further from the f32 MLP than 1.25x
+#    the plain version (m >= 512);
+#  f32 weights (K1-f32): max abs 1e-4 (1024-term f32 sums in two orders).
+F32_TOL_MAX_ABS = 1e-4
+BF16_TOL_MEAN_REL = 5e-3
+BF16_VS_F32 = 1.25
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixture_002282.png')
@@ -164,11 +188,17 @@ def phase_rows(packed):
         print(f"m={m}: bit-equal")
 
 
+def _zero_launches():
+    from monoloco_tpu_torch.ops import launches
+    for key in launches:
+        launches[key] = 0
+
+
 def _run_predict(precision, model, img_dir, out_dir):
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.ops import launches
     os.environ['MONOLOCO_TPU_PRECISION'] = precision
-    launches['dyn8_mlp'] = 0
+    _zero_launches()
     net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', 'mono',
                     '--model', model, '--calibration', 'kitti',
                     '--output_types', 'json', '-o', out_dir])
@@ -218,7 +248,7 @@ def phase_main_path(params, bn_state, tmp):
     print(f"dds_pred int8 vs float32: mean relative deviation {rel:.3e} "
           f"(budget {DYN8_BUDGET}) over {d8.size} detections")
     check(rel < DYN8_BUDGET, "int8 dds_pred outside the dyn8 budget")
-    return n_launch
+    return {'dyn8_mlp': n_launch}
 
 
 def phase_reference():
@@ -263,15 +293,18 @@ def _time_ms(fn, x):
     return start.elapsed_time(end)
 
 
-def phase_times(packed, folded_net, smi):
-    from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto
+def phase_times(kernels, folded, smi):
+    from monoloco_tpu_torch.models import folded_forward
+    from monoloco_tpu_torch.bench import tree_map
     print(f"== phase 6: times at {TIMING_ROWS} x {IN_DIM} on {smi}", flush=True)
     x = make_inputs(TIMING_ROWS, 'cuda')
-    paths = {
-        'dyn8 kernel': lambda v: fused_loco_forward_dyn8_auto(packed, v),
-        'dyn8 plain': lambda v: dyn8_forward_plain(packed, v),
-        'f32 folded (torch.matmul)': folded_net,
-    }
+    folded_bf16 = tree_map(lambda t: t.to(torch.bfloat16), folded)
+    paths = {'f32 folded (torch.matmul)': lambda v: folded_forward(folded, v),
+             'bf16 folded (torch.matmul)':
+                 lambda v: folded_forward(folded_bf16, v.to(torch.bfloat16)).float()}
+    for name, (entry, plain, packed) in kernels.items():
+        paths[f'{name} kernel'] = lambda v, e=entry, p=packed: e(p, v)
+        paths[f'{name} plain'] = lambda v, f=plain, p=packed: f(p, v)
     times = {name: [] for name in paths}
     with torch.inference_mode():
         for fn in paths.values():          # warm-up
@@ -288,6 +321,140 @@ def phase_times(packed, folded_net, smi):
     return med
 
 
+def _compare(name, rule, out, ref, f32_ref):
+    """Hold a kernel's output against its plain version's; returns max abs."""
+    diff = (out - ref).abs()
+    max_abs = float(diff.max())
+    mean_rel = float(diff.mean() / ref.abs().mean())
+    rows_off = float((diff > 1e-5 * (1 + ref.abs())).any(dim=1).float().mean())
+    line = (f"{name} m={out.shape[0]:6d} {out.shape[1]:2d} outs: max_abs_err {max_abs:.3e}  "
+            f"mean_rel_err {mean_rel:.3e}  rows off {rows_off:.3f}")
+    if rule == 'f32':
+        ok = max_abs <= F32_TOL_MAX_ABS
+    elif rule == 'int8':
+        ok = max_abs <= TOL_MAX_ABS and rows_off <= 0.1 and mean_rel <= 1e-3
+    else:
+        ok = max_abs <= TOL_MAX_ABS and mean_rel <= BF16_TOL_MEAN_REL
+        if out.shape[0] >= 512:
+            k_err = float((out - f32_ref).abs().mean())
+            p_err = float((ref - f32_ref).abs().mean())
+            line += f"  vs f32: kernel {k_err:.3e}, plain {p_err:.3e}"
+            ok = ok and k_err <= BF16_VS_F32 * p_err
+    print(line, flush=True)
+    check(ok and bool(torch.isfinite(out).all()),
+          f"{name} disagrees with its plain version at m={out.shape[0]}")
+    return max_abs
+
+
+def phase_new_kernels(kernels, folded, stereo):
+    from monoloco_tpu_torch.models import folded_forward
+    from monoloco_tpu_torch.ops import launches
+    print(f"== phase 7: K1, K4, K5 vs plain, hidden {HIDDEN}, {STAGES} stages", flush=True)
+    worst = {}
+    for name, (entry, plain, packed) in kernels.items():
+        if name == 'dyn8_mlp':
+            continue
+        rule = RULES[name]
+        worst[name] = 0.0
+        for m in M_ROWS:
+            x = make_inputs(m, 'cuda')
+            before = launches[name]
+            out = entry(packed, x)
+            torch.cuda.synchronize()
+            check(launches[name] == before + 1, f"{name}: launch counter did not rise")
+            check(out.shape == (m, OUT_DIM), f"{name}: output shape {tuple(out.shape)}")
+            worst[name] = max(worst[name], _compare(name, rule, out, plain(packed, x),
+                                                    folded_forward(folded, x)))
+            del out
+        s_entry, s_plain, s_packed, s_folded = stereo[name]
+        xs = torch.from_numpy(np.random.default_rng(SEED + 77).normal(
+            size=(77, 68)).astype(np.float32)).cuda()
+        out = s_entry(s_packed, xs)
+        check(out.shape == (77, 10), f"{name}: stereo output shape {tuple(out.shape)}")
+        worst[name] = max(worst[name], _compare(f"{name} 68->10", rule, out,
+                                                s_plain(s_packed, xs),
+                                                folded_forward(s_folded, xs)))
+        big = make_inputs(512, 'cuda')
+        full = entry(packed, big)
+        for m in (1, 8, 77, 512):
+            check(torch.equal(entry(packed, big[:m].contiguous()), full[:m]),
+                  f"{name}: kernel(x[:{m}]) != kernel(x)[:{m}]")
+        print(f"{name}: rows bit-equal at m = 1, 8, 77, 512")
+    return worst
+
+
+def phase_bench():
+    """The bench and both tools, each JSON line checked; returns the launch
+    counts of the whole phase."""
+    from monoloco_tpu_torch import bench
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.tools import bench_pallas_crossover, bench_pallas_int8
+    print("== phase 8: python -m monoloco_tpu_torch.bench and the ablation tools",
+          flush=True)
+    _zero_launches()
+    os.environ.pop('MONOLOCO_TPU_PRECISION', None)
+    line = bench.main([])
+    check(all(np.isfinite(v) for v in line['checksum'].values()), "bench: bad checksum")
+    check('bf16_inferences_per_sec' in line and 'int8_dyn_inferences_per_sec' in line,
+          "unpinned bench lacks a leg")
+    check(line['launches']['int8'].get('dyn8_mlp', 0) > 0, "bench int8 leg: no dyn8 launch")
+    for precision, kernel in (('int8-a8', 'int8_static_mlp'), ('int8-xla', None),
+                              ('f32', None)):
+        os.environ['MONOLOCO_TPU_PRECISION'] = precision
+        line = bench.main([])
+        check(np.isfinite(line['checksum']), f"bench {precision}: bad checksum")
+        if kernel:
+            check(line['launches'].get(kernel, 0) > 0, f"bench {precision}: no {kernel} launch")
+        else:
+            check(line['launches'] == {}, f"bench {precision} launched {line['launches']}")
+    os.environ.pop('MONOLOCO_TPU_PRECISION', None)
+    kernel_of = {'pallas-bf16': 'fused_mlp_bf16', 'pallas-f32': 'fused_mlp_f32',
+                 'pallas-w8': 'w8_mlp', 'pallas-dyn8': 'dyn8_mlp',
+                 'pallas-int8': 'int8_static_mlp'}
+    records = bench_pallas_int8.main(list(bench_pallas_int8.VARIANTS) + ['pallas-f32'])
+    check(len(records) == 7, f"bench_pallas_int8 printed {len(records)} records")
+    for rec in records:
+        check(np.isfinite(rec['checksum']), f"{rec['variant']}: bad checksum")
+        kernel = kernel_of.get(rec['variant'])
+        check((rec['launches'].get(kernel, 0) > 0) if kernel else rec['launches'] == {},
+              f"{rec['variant']}: launches {rec['launches']}")
+    before = launches['fused_mlp_bf16']
+    records = bench_pallas_crossover.main(['--hiddens', '1024', '--batches', '256,131072'])
+    check(len(records) == 4 and all('inf_per_sec' in r for r in records),
+          "crossover records incomplete")
+    check(launches['fused_mlp_bf16'] > before, "crossover: no K1-bf16 launch")
+    return dict(launches)
+
+
+RULES = {'fused_mlp_bf16': 'bf16', 'fused_mlp_f32': 'f32', 'int8_static_mlp': 'int8',
+         'w8_mlp': 'bf16'}
+REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
+            'fused_mlp_bf16': 'monoloco_tpu/ops/fused_mlp.py:63',
+            'fused_mlp_f32': 'monoloco_tpu/ops/fused_mlp.py:63',
+            'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
+            'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
+SOURCES = {'dyn8_mlp': 'dyn8_mlp.cu', 'fused_mlp_bf16': 'fused_mlp.cu',
+           'fused_mlp_f32': 'fused_mlp.cu', 'int8_static_mlp': 'dyn8_mlp.cu',
+           'w8_mlp': 'dyn8_mlp.cu'}
+
+
+def make_kernels(folded, calib):
+    """kernel name -> (entry(packed, x), plain(packed, x), packed)."""
+    from monoloco_tpu_torch import ops
+    w8 = ops.pack_folded_weights_w8(folded)
+    return {
+        'dyn8_mlp': (ops.fused_loco_forward_dyn8_auto, ops.dyn8_forward_plain, w8),
+        'fused_mlp_bf16': (lambda p, x: ops.fused_loco_forward(None, x, packed=p),
+                           ops.fused_forward_plain, ops.pack_folded_weights(folded)),
+        'fused_mlp_f32': (lambda p, x: ops.fused_loco_forward(None, x, packed=p),
+                          ops.fused_forward_plain,
+                          ops.pack_folded_weights(folded, torch.float32)),
+        'int8_static_mlp': (ops.fused_loco_forward_int8, ops.int8_static_forward_plain,
+                            ops.pack_folded_weights_int8(folded, calib)),
+        'w8_mlp': (ops.fused_loco_forward_w8, ops.w8_forward_plain, w8),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -296,31 +463,43 @@ def main():
     except ImportError as exc:
         fail(f"run from the root of a monoloco_tpu checkout ({exc})")
     check('jax' not in sys.modules, "jax was imported")
-    from monoloco_tpu_torch.models import fold_eval_params, FoldedLoco
-    from monoloco_tpu_torch.ops import pack_folded_weights_w8
+    from monoloco_tpu_torch.models import fold_eval_params, init_loco_params
+    from monoloco_tpu_torch.ops.quant import synthetic_calibration_inputs
 
     smi = phase_device()
     params, bn_state = make_weights()
     to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()}
                          if isinstance(t, dict) else t.cuda())
     folded = fold_eval_params(to_cuda(params), to_cuda(bn_state))
-    packed = pack_folded_weights_w8(folded)
-    max_err = phase_kernel(packed, M_ROWS)
+    kernels = make_kernels(folded, synthetic_calibration_inputs(IN_DIM, n=4096, device='cuda'))
+    packed = kernels['dyn8_mlp'][2]
+    max_err = {'dyn8_mlp': phase_kernel(packed, M_ROWS)}
     phase_rows(packed)
     with tempfile.TemporaryDirectory() as tmp:
-        n_launch = phase_main_path(params, bn_state, tmp)
+        main_launches = phase_main_path(params, bn_state, tmp)
     phase_reference()
-    med = phase_times(packed, FoldedLoco(folded).cuda(), smi)
+    med = phase_times(kernels, folded, smi)
+    s_params, s_bn = init_loco_params(SEED + 2, 68, 10, HIDDEN, STAGES)
+    s_folded = fold_eval_params(to_cuda(s_params), to_cuda(s_bn))
+    s_calib = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
+        size=(4096, 68)).astype(np.float32)).cuda()
+    stereo = {name: (*kern, s_folded) for name, kern in make_kernels(s_folded, s_calib).items()}
+    max_err.update(phase_new_kernels(kernels, folded, stereo))
+    for key, n in phase_bench().items():
+        main_launches[key] = main_launches.get(key, 0) + n
     check('jax' not in sys.modules, "jax was imported")
+    missing = [k for k in kernels if main_launches.get(k, 0) == 0]
+    check(not missing, f"the main path never launched {missing}")
 
     report = {"kernels": [{
-        "name": "dyn8_mlp", "route": "cuda",
-        "source": "monoloco_tpu_torch/ops/csrc/dyn8_mlp.cu",
-        "replaces": "monoloco_tpu/ops/fused_mlp.py:474",
-        "launches": n_launch, "max_abs_err": max_err,
-        "ms": med['dyn8 kernel'], "plain_ms": med['dyn8 plain'],
+        "name": name, "route": "cuda",
+        "source": f"monoloco_tpu_torch/ops/csrc/{SOURCES[name]}",
+        "replaces": REPLACES[name],
+        "launches": main_launches[name], "max_abs_err": max_err[name],
+        "ms": med[f'{name} kernel'], "plain_ms": med[f'{name} plain'],
+    } for name in kernels],
         "f32_matmul_ms": med['f32 folded (torch.matmul)'],
-    }]}
+        "bf16_matmul_ms": med['bf16 folded (torch.matmul)']}
     print(f"nvidia-smi: {smi}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

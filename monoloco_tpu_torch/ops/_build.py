@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels at first use.
 
-`nvcc` compiles `csrc/*.cu` for sm_90a into one shared library with a plain C
-interface, which `ctypes` loads: no PyTorch headers, so a build takes seconds.
-The library goes into `build/monoloco_tpu_torch/` at the root of the checkout
-(listed in .gitignore) and is named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
-Nothing here runs at import: the CPU tests import every module on a machine
-without nvcc.
+`nvcc` compiles each `csrc/*.cu` for sm_90a into an object file, all of them
+at once in parallel, and links them into one shared library with a plain C
+interface, which `ctypes` loads: no PyTorch headers, so a build takes
+seconds. The library goes into `build/monoloco_tpu_torch/` at the root of the
+checkout (listed in .gitignore) and is named by a hash of the sources, the
+shared header and the flags, so an edited source rebuilds and an unchanged
+one loads the existing library. Nothing here runs at import: the CPU tests
+import every module on a machine without nvcc.
 """
 
 import ctypes
@@ -18,9 +19,10 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('dyn8_mlp.cu',)
+_SOURCES = ('dyn8_mlp.cu', 'fused_mlp.cu')
+_HEADERS = ('mlp_common.cuh',)
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+          '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'monoloco_tpu_torch'
 
 # What the last build or load did: library path, seconds spent, nvcc's output.
@@ -42,13 +44,42 @@ def _nvcc():
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dyn8_mlp_forward.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
-    lib.dyn8_mlp_forward.restype = i32
-    lib.dyn8_mlp_smem_bytes.argtypes = [i32, i32]
-    lib.dyn8_mlp_smem_bytes.restype = ctypes.c_size_t
-    lib.dyn8_mlp_error_string.argtypes = [i32]
-    lib.dyn8_mlp_error_string.restype = ctypes.c_char_p
+    lib.int8w_mlp_forward.argtypes = [i32] + [ptr] * 12 + [i32] * 5 + [ptr]
+    lib.int8w_mlp_forward.restype = i32
+    lib.int8w_mlp_smem_bytes.argtypes = [i32, i32, i32]
+    lib.int8w_mlp_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_mlp_forward.argtypes = [i32] + [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.fused_mlp_forward.restype = i32
+    lib.fused_mlp_smem_bytes.argtypes = [i32, i32, i32]
+    lib.fused_mlp_smem_bytes.restype = ctypes.c_size_t
+    lib.mlp_error_string.argtypes = [i32]
+    lib.mlp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _compile(lib_path):
+    """nvcc every source to an object in parallel, then link; returns the
+    compilers' output."""
+    nvcc = _nvcc()
+    tmp = lib_path.with_suffix(f'.{os.getpid()}.tmp')
+    objs = [tmp.with_name(f'{tmp.name}.{Path(n).stem}.o') for n in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *_FLAGS, '-c', '-o', str(obj), str(_CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(_SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = ''.join(f'--- {n}\n{text}' for n, text in zip(_SOURCES, logs))
+    failed = [n for n, p in zip(_SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *_FLAGS[:2], '-shared', '-o', str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        failed = ['link'] if res.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    os.replace(tmp, lib_path)
+    return log
 
 
 def load_library():
@@ -58,19 +89,13 @@ def load_library():
         return _LIB
     start = time.perf_counter()
     digest = hashlib.sha256(' '.join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         digest.update((_CSRC / name).read_bytes())
     lib_path = BUILD_DIR / f'libmonoloco_kernels_{digest.hexdigest()[:16]}.so'
     log = ''
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *_FLAGS, '-o', str(tmp), *(str(_CSRC / n) for n in _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
+        log = _compile(lib_path)
     _LIB = _declare(ctypes.CDLL(str(lib_path)))
     BUILD_INFO.update(path=str(lib_path), seconds=time.perf_counter() - start,
                       nvcc_output=log)

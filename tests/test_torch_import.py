@@ -3,8 +3,9 @@ trainer checkpoints reference).
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
-CPU slice once (predict on a fixture copy, f32 and int8), and then asserts
-that neither jax nor optax is in sys.modules.
+CPU slice once (predict on a fixture copy, f32 and int8), runs each bench
+leg and ablation variant once at a toy size, and then asserts that neither
+jax nor optax is in sys.modules.
 """
 
 import os
@@ -42,6 +43,15 @@ _SCRIPT = textwrap.dedent("""
         net = run.main(args + ['-o', os.path.join(tmp, 'int8')])
         assert net.n_dispatches_int8 == 1
         assert len(os.listdir(os.path.join(tmp, 'int8'))) == 3
+    from monoloco_tpu_torch import bench
+    from monoloco_tpu_torch.tools import bench_pallas_int8
+    folded = bench.bench_folded(hidden=128, device='cpu')
+    for leg in ('bf16', 'f32', 'int8', 'int8-a8', 'int8-xla'):
+        bench.measure(folded, leg, batch=16, scan_iters=1, device='cpu')
+    keypoints, kk = bench.bench_keypoints(16, 'cpu')
+    for variant, mlp in bench_pallas_int8.build_mlps(folded).items():
+        bench_pallas_int8.measure_variant(variant, mlp, keypoints, kk, 1)
+    print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax'))
     print('MODULES', len(names), 'LEAKED', leaked)
     assert not leaked, leaked
@@ -57,7 +67,11 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert 'LEAKED []' in res.stdout
     n_modules = int(re.search(r'MODULES (\d+)', res.stdout).group(1))
-    assert n_modules >= 14
+    assert n_modules >= 19
+    names = set(re.search(r'NAMES (.*)', res.stdout).group(1).split())
+    assert {'monoloco_tpu_torch.bench', 'monoloco_tpu_torch.ops.quant',
+            'monoloco_tpu_torch.tools.bench_pallas_int8',
+            'monoloco_tpu_torch.tools.bench_pallas_crossover'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

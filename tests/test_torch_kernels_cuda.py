@@ -1,19 +1,30 @@
-"""The dyn8 CUDA kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card.
 
-Marked `cuda`: without a CUDA device every test skips (the kernel has no CPU
-mode). This file imports neither jax nor the JAX package, so it runs on the
-GPU machine, where jax is not installed; tests/conftest.py imports jax, so
-run it there with
+Marked `cuda`: without a CUDA device every test skips (the kernels have no
+CPU mode). This file imports neither jax nor the JAX package, so it runs on
+the GPU machine, where jax is not installed; tests/conftest.py imports jax,
+so run it there with
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
-Weights come from a numpy seed with perturbed BN statistics. Tolerance: the
-kernel and the plain version quantize identically and differ only in the f32
-sum order of the bf16 layers. A last-ulp difference there can flip one
-rounding tie of a later quantization, which moves all outputs of that row
-by up to ~1e-2 (measured on the H100: about 2-3% of the rows at hidden 1024
-with normal inputs). So at most 10% of the rows may hold an output that
-differs by more than 1e-5 (1 + |ref|), no output by more than 5e-2, and the
-mean difference stays under 1e-3 of the mean output; a wrong kernel misses
-all three. A row never
+Weights come from a numpy seed with perturbed BN statistics. Tolerances:
+ - int8 activations (dyn8, static a8w8): the kernel and the plain version
+   quantize identically and differ only in the f32 sum order of the bf16
+   layers. A last-ulp difference there can flip one rounding tie of a later
+   quantization, which moves all outputs of that row by up to ~1e-2
+   (measured on the H100: about 2-3% of the rows at hidden 1024 with normal
+   inputs). So at most 10% of the rows may hold an output that differs by
+   more than 1e-5 (1 + |ref|), no output by more than 5e-2, and the mean
+   difference stays under 1e-3 of the mean output.
+ - bf16 activations (K1 with bf16 weights, w8a16): every H x H layer rounds
+   its input to bf16, and the tensor cores' f32 sums differ from the plain
+   version's exact ones in the last bits, so some of the 8 x H roundings of
+   a row flip (measured on the H100 at hidden 1024: 15-100% of the rows,
+   mean difference 2e-4 to 2e-3 of the mean output). So no output may differ
+   by more than 5e-2, the mean difference stays under 5e-3 of the mean
+   output, and the kernel is no further from the f32 MLP than 1.25 x the
+   plain version is.
+ - f32 (K1 with f32 weights): max abs 1e-4; the two sum 1024 f32 products
+   in different orders.
+A wrong kernel misses every one of these by orders of magnitude. A row never
 depends on the rows around it (bit for bit).
 """
 
@@ -22,28 +33,56 @@ import pytest
 import torch
 
 from monoloco_tpu_torch import ops
-from monoloco_tpu_torch.models import fold_eval_params, init_loco_params
-from monoloco_tpu_torch.ops import (dyn8_forward_plain, fused_loco_forward_dyn8_auto,
-                                    pack_folded_weights_w8)
+from monoloco_tpu_torch.models import fold_eval_params, folded_forward, init_loco_params
+from monoloco_tpu_torch.ops import (dyn8_forward_plain, fused_forward_plain,
+                                    fused_loco_forward, fused_loco_forward_dyn8_auto,
+                                    fused_loco_forward_int8, fused_loco_forward_w8,
+                                    int8_static_forward_plain, pack_folded_weights,
+                                    pack_folded_weights_int8, pack_folded_weights_w8,
+                                    w8_forward_plain)
 
 pytestmark = pytest.mark.cuda
+
+# kernel -> (entry on a pack, plain version, pack name, launches key, rule)
+KERNELS = {
+    'dyn8': (fused_loco_forward_dyn8_auto, dyn8_forward_plain, 'w8', 'dyn8_mlp', 'int8'),
+    'k1_bf16': (lambda p, x: fused_loco_forward(None, x, packed=p), fused_forward_plain,
+                'bf16', 'fused_mlp_bf16', 'bf16'),
+    'k1_f32': (lambda p, x: fused_loco_forward(None, x, packed=p), fused_forward_plain,
+               'f32', 'fused_mlp_f32', 'f32'),
+    'k4': (fused_loco_forward_int8, int8_static_forward_plain, 'a8', 'int8_static_mlp', 'int8'),
+    'k5': (fused_loco_forward_w8, w8_forward_plain, 'w8', 'w8_mlp', 'bf16'),
+}
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card: the dyn8 kernel has no CPU mode')
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     return torch.device('cuda')
 
 
-def _packed(in_dim, out_dim, hidden, device, seed=0):
+def _folded(in_dim, out_dim, hidden, device, seed=0):
     params, bn = init_loco_params(seed, in_dim, out_dim, hidden, 3)
     rng = np.random.default_rng(seed)
     for s in (bn['bn1'], bn['bn3'], bn['stages']['bn1'], bn['stages']['bn2']):
         s['mean'] = torch.from_numpy(rng.normal(0, 0.1, tuple(s['mean'].shape)).astype(np.float32))
         s['var'] = torch.from_numpy(rng.uniform(0.5, 2.0, tuple(s['var'].shape)).astype(np.float32))
     folded = fold_eval_params(params, bn)
-    return tuple(t.to(device) for t in pack_folded_weights_w8(folded))
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+    return to(folded)
+
+
+def _packs(folded, in_dim, device):
+    calib = _inputs(2048, in_dim, device, seed=5)
+    return {'w8': pack_folded_weights_w8(folded), 'a8': pack_folded_weights_int8(folded, calib),
+            'bf16': pack_folded_weights(folded), 'f32': pack_folded_weights(folded, torch.float32)}
+
+
+def _packed(in_dim, out_dim, hidden, device, seed=0):
+    return pack_folded_weights_w8(_folded(in_dim, out_dim, hidden, device, seed))
 
 
 def _inputs(m, in_dim, device, seed=1):
@@ -51,31 +90,48 @@ def _inputs(m, in_dim, device, seed=1):
     return torch.from_numpy(x).to(device)
 
 
+def _check(rule, out, ref, f32_ref):
+    diff = (out - ref).abs()
+    if rule == 'f32':
+        assert float(diff.max()) <= 1e-4, float(diff.max())
+        return
+    assert float(diff.max()) <= 5e-2, float(diff.max())
+    if rule == 'int8':
+        rows_off = float((diff > 1e-5 * (1 + ref.abs())).any(dim=1).float().mean())
+        assert rows_off <= 0.1, rows_off
+        assert float(diff.mean()) <= 1e-3 * float(ref.abs().mean()), float(diff.mean())
+    else:
+        assert float(diff.mean()) <= 5e-3 * float(ref.abs().mean()), float(diff.mean())
+        if out.shape[0] >= 512:
+            kernel_err = float((out - f32_ref).abs().mean())
+            plain_err = float((ref - f32_ref).abs().mean())
+            assert kernel_err <= 1.25 * plain_err, (kernel_err, plain_err)
+
+
+@pytest.mark.parametrize('kernel', list(KERNELS))
 @pytest.mark.parametrize('in_dim,out_dim,hidden', [(34, 9, 128), (68, 10, 256), (34, 9, 1024)])
-def test_kernel_matches_plain(cuda_device, in_dim, out_dim, hidden):
-    packed = _packed(in_dim, out_dim, hidden, cuda_device)
+def test_kernel_matches_plain(cuda_device, kernel, in_dim, out_dim, hidden):
+    entry, plain, pack, key, rule = KERNELS[kernel]
+    folded = _folded(in_dim, out_dim, hidden, cuda_device)
+    packed = _packs(folded, in_dim, cuda_device)[pack]
     for m in (1, 77, 512):
         x = _inputs(m, in_dim, cuda_device, seed=m)
-        before = ops.launches['dyn8_mlp']
-        out = fused_loco_forward_dyn8_auto(packed, x)
+        before = ops.launches[key]
+        out = entry(packed, x)
         torch.cuda.synchronize()
-        assert ops.launches['dyn8_mlp'] == before + 1
-        assert out.shape == (m, out_dim)
-        ref = dyn8_forward_plain(packed, x)
-        diff = (out - ref).abs()
-        rows_off = float((diff > 1e-5 * (1 + ref.abs())).any(dim=1).float().mean())
-        assert rows_off <= 0.1, (m, rows_off)
-        assert float(diff.max()) <= 5e-2, (m, float(diff.max()))
-        assert float(diff.mean()) <= 1e-3 * float(ref.abs().mean()), (m, float(diff.mean()))
+        assert ops.launches[key] == before + 1
+        assert out.shape == (m, out_dim) and bool(torch.isfinite(out).all())
+        _check(rule, out, plain(packed, x), folded_forward(folded, x))
 
 
-def test_kernel_rows_are_independent(cuda_device):
-    packed = _packed(34, 9, 128, cuda_device)
+@pytest.mark.parametrize('kernel', list(KERNELS))
+def test_kernel_rows_are_independent(cuda_device, kernel):
+    entry, _, pack, _, _ = KERNELS[kernel]
+    packed = _packs(_folded(34, 9, 128, cuda_device), 34, cuda_device)[pack]
     big = _inputs(512, 34, cuda_device, seed=9)
-    out_big = fused_loco_forward_dyn8_auto(packed, big)
+    out_big = entry(packed, big)
     for m in (1, 8, 77):
-        assert torch.equal(fused_loco_forward_dyn8_auto(packed, big[:m].contiguous()),
-                           out_big[:m])
+        assert torch.equal(entry(packed, big[:m].contiguous()), out_big[:m])
 
 
 def test_kernel_refuses_bad_inputs(cuda_device):
@@ -88,3 +144,12 @@ def test_kernel_refuses_bad_inputs(cuda_device):
         fused_loco_forward_dyn8_auto(packed, _inputs(8, 68, cuda_device)[:, ::2])
     with pytest.raises(ValueError, match='is on'):
         fused_loco_forward_dyn8_auto(tuple(t.cpu() for t in packed), _inputs(8, 34, cuda_device))
+
+
+@pytest.mark.parametrize('dtype,hidden', [(torch.bfloat16, 1536), (torch.float32, 2048)])
+def test_k1_refuses_hidden_beyond_its_tile(cuda_device, dtype, hidden):
+    """The 16-row tile's activations must fit one block's shared memory:
+    hidden <= 1408 with bf16 weights, <= 1792 with f32."""
+    packed = pack_folded_weights(_folded(34, 9, hidden, cuda_device), dtype)
+    with pytest.raises(ValueError, match='shared memory'):
+        fused_loco_forward(None, _inputs(8, 34, cuda_device), packed=packed)
