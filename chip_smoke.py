@@ -16,10 +16,14 @@ to the CPU):
  5. Reference agreement: the f32 engine on the byte-compat checkpoint and
     fixture against the reference's out.monoloco.json.
  6. Times on the card at 131072 x 34: every kernel and its plain version,
-    and the f32 and bf16 folded MLPs in `torch.matmul`.
+    and the f32 and bf16 folded MLPs in `torch.matmul`; for K1-bf16 and K5,
+    the device time of each CUDA kernel of one call (torch.profiler) and
+    the peak device memory of one call (their activation scratch).
  7. The K1 (bf16 and f32 weights), static a8w8 (K4) and w8a16 (K5) kernels
     against their plain versions at full width for m in M_ROWS, and at
-    68 -> 10 for m = 77; row independence bit for bit; launch counters.
+    68 -> 10 for m = 77; row independence bit for bit; launch counters; and
+    one H x H layer of csrc/wgmma_layer.cu (bf16 and int8 weights) against
+    its plain layer at 131072 x 1024.
  8. The serving bench and the ablation tools, as a user runs them:
     `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
     int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
@@ -27,8 +31,14 @@ to the CPU):
     131072. Each JSON line is printed; each checksum must be finite and
     each kernel variant must have launched its kernel.
 The launch counts of the report are those of the main-path runs (phases 4
-and 8, each with every count set to 0 just before it). The line before the
-last is the kernel report (JSON); the last line is {"ok": true, "device": {...}}.
+and 8, each with every count set to 0 just before it); a count is one call
+of the kernel's entry, which for K1-bf16 and K5 makes 2S + 4 (K5: 2S + 5)
+CUDA launches. Each report entry has its time, its plain version's, the
+bound (the larger of its operations over the card's peak for their type and
+its bytes over 3.35 TB/s, from this run's shapes) and `library_ms`, the
+`torch.matmul` MLP of the same weight type where there is one. The line
+before the last is the kernel report (JSON); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -71,6 +81,14 @@ BYTE_COMPAT_TOL = 1e-4     # 1e-3 for confs (tests/test_byte_compat.py)
 F32_TOL_MAX_ABS = 1e-4
 BF16_TOL_MEAN_REL = 5e-3
 BF16_VS_F32 = 1.25
+# One layer of csrc/wgmma_layer.cu against its plain layer: the bf16 rule,
+# and since only one f32 sum's order differs, at most LAYER_TOL_OFF of the
+# bf16 outputs differ at all and the f32 residual stays within 1e-5 (1 + |y|).
+LAYER_TOL_OFF = 0.01
+
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
+PEAK_OPS = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
+PEAK_BYTES = 3.35e12
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixture_002282.png')
@@ -318,7 +336,52 @@ def phase_times(kernels, folded, smi):
     for name, v in times.items():
         print(f"{name}: median {med[name]:.4f} ms over {len(v)} runs "
               f"(min {min(v):.4f}, max {max(v):.4f})")
+    for name in ('fused_mlp_bf16', 'w8_mlp'):
+        launch_breakdown(name, *kernels[name][::2], x)
+    for name in ('fused_mlp_bf16', 'w8_mlp'):
+        entry, _, packed = kernels[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = entry(packed, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"{name}: peak device memory of one call above its inputs "
+              f"{peak / 2 ** 20:.1f} MiB ({peak} bytes, output included)")
+        del out
     return med
+
+
+def launch_breakdown(name, entry, packed, x):
+    """Device time of each CUDA kernel in one call, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    entry(packed, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        entry(packed, x)
+        torch.cuda.synchronize()
+    rows = [(getattr(e, 'device_time_total', 0.0) / 1e3, e.count, e.key)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    if not rows:
+        print(f"{name}: launch breakdown not measured (the profiler saw no device time)")
+        return
+    print(f"{name}: device time of one call by kernel (torch.profiler), "
+          f"{sum(r[0] for r in rows):.4f} ms in all")
+    for ms, count, key in rows:
+        print(f"  {ms:8.4f} ms  x{count:<3d} {key[:100]}")
+
+
+def bound(name, packed, m):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    for one forward of m rows: operations over the peak of their type,
+    bytes (x, out and the packed weights, each once) over the memory rate."""
+    hidden, n_mm = packed[0].shape[1], packed[2].shape[0]
+    ops = 2 * m * (IN_DIM * hidden + n_mm * hidden * hidden + hidden * OUT_DIM)
+    nbytes = m * (IN_DIM + OUT_DIM) * 4 + sum(t.numel() * t.element_size() for t in packed)
+    t_ops = ops / PEAK_OPS[OP_TYPE[name]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
 
 def _compare(name, rule, out, ref, f32_ref):
@@ -349,7 +412,8 @@ def _compare(name, rule, out, ref, f32_ref):
 def phase_new_kernels(kernels, folded, stereo):
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.ops import launches
-    print(f"== phase 7: K1, K4, K5 vs plain, hidden {HIDDEN}, {STAGES} stages", flush=True)
+    print(f"== phase 7: K1, K4, K5 and the layer kernels vs plain, hidden {HIDDEN}, "
+          f"{STAGES} stages", flush=True)
     worst = {}
     for name, (entry, plain, packed) in kernels.items():
         if name == 'dyn8_mlp':
@@ -380,7 +444,38 @@ def phase_new_kernels(kernels, folded, stereo):
             check(torch.equal(entry(packed, big[:m].contiguous()), full[:m]),
                   f"{name}: kernel(x[:{m}]) != kernel(x)[:{m}]")
         print(f"{name}: rows bit-equal at m = 1, 8, 77, 512")
+    phase_layers(kernels)
     return worst
+
+
+def phase_layers(kernels):
+    """One H x H layer of csrc/wgmma_layer.cu per weight type, 'add_relu'
+    (the epilogue that reads and writes the most), against its plain layer."""
+    from monoloco_tpu_torch.ops import launches, layer_plain, loco_layer
+    m = TIMING_ROWS
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    a = torch.randn((m, HIDDEN), device='cuda', generator=gen).to(torch.bfloat16)
+    y0 = torch.randn((m, HIDDEN), device='cuda', generator=gen)
+    for key, pack_name, oscale_at in (('wgmma_layer_bf16', 'fused_mlp_bf16', None),
+                                      ('wgmma_layer_w8', 'w8_mlp', 4)):
+        packed = kernels[pack_name][2]
+        w, bias = packed[2][1], (packed[5] if oscale_at else packed[3])[1]
+        oscale = packed[oscale_at][1] if oscale_at else None
+        y_k, y_p = y0.clone(), y0.clone()
+        before = launches[key]
+        out = loco_layer(a, w, bias, 'add_relu', oscale, y_k)
+        torch.cuda.synchronize()
+        check(launches[key] == before + 1, f"{key}: launch counter did not rise")
+        ref = layer_plain(a, w, bias, 'add_relu', oscale, y_p)
+        diff = (out.float() - ref.float()).abs()
+        off = float((diff > 0).float().mean())
+        y_err = float(((y_k - y_p).abs() / (1 + y_p.abs())).max())
+        mean_rel = float(diff.mean() / ref.float().abs().mean())
+        print(f"{key} m={m} x {HIDDEN}: max_abs_err {float(diff.max()):.3e}  mean_rel_err "
+              f"{mean_rel:.3e}  outputs off {off:.5f}  residual err {y_err:.3e}", flush=True)
+        check(off <= LAYER_TOL_OFF and y_err <= 1e-5 and float(diff.max()) <= TOL_MAX_ABS
+              and mean_rel <= BF16_TOL_MEAN_REL, f"{key} disagrees with its plain layer")
+        del out, ref, y_k, y_p
 
 
 def phase_bench():
@@ -433,9 +528,16 @@ REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
             'fused_mlp_f32': 'monoloco_tpu/ops/fused_mlp.py:63',
             'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
             'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
-SOURCES = {'dyn8_mlp': 'dyn8_mlp.cu', 'fused_mlp_bf16': 'fused_mlp.cu',
+SOURCES = {'dyn8_mlp': 'dyn8_mlp.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
            'fused_mlp_f32': 'fused_mlp.cu', 'int8_static_mlp': 'dyn8_mlp.cu',
-           'w8_mlp': 'dyn8_mlp.cu'}
+           'w8_mlp': 'wgmma_layer.cu'}
+# The type of each kernel's products (its bound) and the torch.matmul MLP
+# that computes the same function (library_ms), where there is one.
+OP_TYPE = {'dyn8_mlp': 'int8', 'fused_mlp_bf16': 'bf16', 'fused_mlp_f32': 'f32',
+           'int8_static_mlp': 'int8', 'w8_mlp': 'bf16'}
+LIBRARY = {'fused_mlp_bf16': 'bf16 folded (torch.matmul)',
+           'fused_mlp_f32': 'f32 folded (torch.matmul)',
+           'w8_mlp': 'bf16 folded (torch.matmul)'}
 
 
 def make_kernels(folded, calib):
@@ -491,15 +593,20 @@ def main():
     missing = [k for k in kernels if main_launches.get(k, 0) == 0]
     check(not missing, f"the main path never launched {missing}")
 
-    report = {"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"monoloco_tpu_torch/ops/csrc/{SOURCES[name]}",
-        "replaces": REPLACES[name],
-        "launches": main_launches[name], "max_abs_err": max_err[name],
-        "ms": med[f'{name} kernel'], "plain_ms": med[f'{name} plain'],
-    } for name in kernels],
-        "f32_matmul_ms": med['f32 folded (torch.matmul)'],
-        "bf16_matmul_ms": med['bf16 folded (torch.matmul)']}
+    kernel_lines = []
+    for name, (_, _, packed) in kernels.items():
+        bound_ms, bound_by = bound(name, packed, TIMING_ROWS)
+        kernel_lines.append({
+            "name": name, "route": "cuda",
+            "source": f"monoloco_tpu_torch/ops/csrc/{SOURCES[name]}",
+            "replaces": REPLACES[name],
+            "launches": main_launches[name], "max_abs_err": max_err[name],
+            "ms": med[f'{name} kernel'], "plain_ms": med[f'{name} plain'],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": med[LIBRARY[name]] if name in LIBRARY else None})
+    report = {"kernels": kernel_lines,
+              "f32_matmul_ms": med['f32 folded (torch.matmul)'],
+              "bf16_matmul_ms": med['bf16 folded (torch.matmul)']}
     print(f"nvidia-smi: {smi}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -82,7 +82,12 @@ def _to_host(dic):
 
 
 def default_device():
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    """The card. Without one this raises: the CPU runs only when asked for
+    (`device='cpu'`, `predict --disable-cuda`)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card found: pass device='cpu' (predict: --disable-cuda) "
+                           "to run on the CPU")
+    return torch.device('cuda')
 
 
 class Loco:

@@ -5,7 +5,7 @@ at once in parallel, and links them into one shared library with a plain C
 interface, which `ctypes` loads: no PyTorch headers, so a build takes
 seconds. The library goes into `build/monoloco_tpu_torch/` at the root of the
 checkout (listed in .gitignore) and is named by a hash of the sources, the
-shared header and the flags, so an edited source rebuilds and an unchanged
+shared headers and the flags, so an edited source rebuilds and an unchanged
 one loads the existing library. Nothing here runs at import: the CPU tests
 import every module on a machine without nvcc.
 """
@@ -19,8 +19,8 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('dyn8_mlp.cu', 'fused_mlp.cu')
-_HEADERS = ('mlp_common.cuh',)
+_SOURCES = ('dyn8_mlp.cu', 'fused_mlp.cu', 'wgmma_layer.cu')
+_HEADERS = ('mlp_common.cuh', 'hopper_common.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'monoloco_tpu_torch'
@@ -46,12 +46,20 @@ def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.int8w_mlp_forward.argtypes = [i32] + [ptr] * 12 + [i32] * 5 + [ptr]
     lib.int8w_mlp_forward.restype = i32
-    lib.int8w_mlp_smem_bytes.argtypes = [i32, i32, i32]
+    lib.int8w_mlp_smem_bytes.argtypes = [i32, i32]
     lib.int8w_mlp_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_mlp_forward.argtypes = [i32] + [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.fused_mlp_forward.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.fused_mlp_forward.restype = i32
-    lib.fused_mlp_smem_bytes.argtypes = [i32, i32, i32]
+    lib.fused_mlp_smem_bytes.argtypes = [i32, i32]
     lib.fused_mlp_smem_bytes.restype = ctypes.c_size_t
+    lib.wgmma_layer_forward.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.wgmma_layer_forward.restype = i32
+    lib.widen_int8_forward.argtypes = [ptr, ptr, ctypes.c_size_t, ptr]
+    lib.widen_int8_forward.restype = i32
+    lib.loco_input_forward.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.loco_input_forward.restype = i32
+    lib.loco_heads_forward.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.loco_heads_forward.restype = i32
     lib.mlp_error_string.argtypes = [i32]
     lib.mlp_error_string.restype = ctypes.c_char_p
     return lib

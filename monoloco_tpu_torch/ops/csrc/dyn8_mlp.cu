@@ -1,12 +1,11 @@
-// Fused int8-weight folded Loco MLP for NVIDIA Hopper (sm_90a), in three
-// modes, one per Pallas kernel it replaces in monoloco_tpu/ops/fused_mlp.py:
+// Fused int8 folded Loco MLP for NVIDIA Hopper (sm_90a), in two modes, one
+// per Pallas kernel it replaces in monoloco_tpu/ops/fused_mlp.py:
 //
 //   kDynamic  K2/K3, `_kernel_int8` act_mode 'dynamic' (streaming) and
 //             `_kernel_int8_resident`: per-row a8w8 (dyn8).
 //   kStatic   K4, `_kernel_int8` act_mode 'static': a8w8 with the calibrated
 //             per-layer scalar inv_in.
-//   kW8       K5, `_kernel_int8` act_mode 'none': w8a16, int8 weights
-//             widened to bf16, bf16 products.
+// (K5, act_mode 'none', w8a16, is wgmma_layer.cu.)
 //
 // K2 and K3 differ only in where the int8 weight stack lives on the TPU;
 // here one kernel serves both, and "resident" means the stack (8 MB at
@@ -23,33 +22,28 @@
 //             s8 x s8 -> s32; acc * (max(amax_row, 1e-8) * (1/127) * col_scale) + b
 //   kStatic   q = clip(rint(a * inv_in), +-127); s8 x s8 -> s32;
 //             acc * out_scale + b                (no row scale)
-//   kW8       bf16(a) x bf16(Wq) -> f32; acc * col_scale + b
 // with explicit _rn intrinsics so nvcc contracts nothing into an FMA.
 //
-// The activations never leave the SM: y and h (f32) and the layer input (q
-// int8, or bf16 for kW8) live in dynamic shared memory, about 16 * H * 9
-// bytes (144 KB at H = 1024; 160 KB for kW8), and never touch device memory.
+// The activations never leave the SM: y and h (f32) and the layer input (q,
+// int8) live in dynamic shared memory, about 16 * H * 9 bytes (144 KB at
+// H = 1024), and never touch device memory.
 // The weights stay in L2 (8 MB at H = 1024), so HBM bytes do not bound the
 // kernel; but every 16-row tile re-reads the whole stack from L2, and
 // measured on the H100 (PERF.md) a block takes about as long alone on the
 // card as in a full grid: each SM is bound by how fast it pulls weight bytes
 // from L2, with the tensor cores mostly idle. The design answers that in
 // three ways: the products run on the tensor cores (mma.sync m16n8k32 s8,
-// or m16n8k16 bf16 for kW8, whose 16 rows are the tile), so the arithmetic
-// costs little; each lane loads 4-byte words of four neighbouring weight
-// rows (whole 32-byte sectors across the warp) and __byte_perm (or, for kW8,
-// an exact int8 -> bf16 widening) turns them into B fragments, so the
+// whose 16 rows are the tile), so the arithmetic costs little; each lane
+// loads 4-byte words of four neighbouring weight rows (whole 32-byte sectors
+// across the warp) and __byte_perm turns them into B fragments, so the
 // weights keep their (in, out) layout and are read once per tile; and a ring
 // of kPrefetch k-steps of weight words keeps those loads in flight. One
-// 256-thread block fills an SM's shared memory. kW8 reads the same bytes as
-// the a8w8 modes but runs twice the mma instructions and converts every
-// weight byte in registers, so it should be the slowest of the three.
+// 256-thread block fills an SM's shared memory.
 //
-// A later PR should try: TMA (or cp.async) rings of weight tiles in the
-// free shared memory, read with 16-byte loads; TMA multicast across a
-// cluster, so neighbouring SMs share one L2 read of each tile; wgmma with
-// 64-row tiles to reuse each weight byte on more rows; a persistent grid of
-// one block per SM.
+// A later PR should try the design of wgmma_layer.cu (one launch per layer,
+// 128-row tiles on TMA and wgmma, here s8 x s8 -> s32, with the per-row
+// quantization fused into the previous layer's epilogue), TMA multicast
+// across a cluster, and a persistent grid of one block per SM.
 
 #include "mlp_common.cuh"
 
@@ -61,7 +55,7 @@ namespace {
 // different shared-memory banks (H is a multiple of 128).
 constexpr int kQPad = 16;
 
-enum Mode { kDynamic = 0, kStatic = 1, kW8 = 2 };
+enum Mode { kDynamic = 0, kStatic = 1 };
 
 // q[r][k] = clip(rint(act[r][k] * 127 / max(amax_r, 1e-8)), +-127) and
 // row_scale[r] = max(amax_r, 1e-8) * (1/127): one warp per row.
@@ -118,15 +112,6 @@ __device__ __forceinline__ void mma_s8(int acc[4], const uint32_t a[4], uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16 pair (byte c of lo, byte c of hi) of two words of int8 weights: the
-// widening is exact (|v| <= 127 has 7 significant bits).
-__device__ __forceinline__ uint32_t widen_pair(uint32_t lo, uint32_t hi, int c) {
-  const float a = static_cast<float>(static_cast<int>(lo << (24 - 8 * c)) >> 24);
-  const float b = static_cast<float>(static_cast<int>(hi << (24 - 8 * c)) >> 24);
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // .x (low half) = a
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // One k-step of lane (g, t)'s weight words: w[k + 4t + i][cb + 4g .. + 3]
 // in words[i] and w[k + 16 + 4t + i][...] in words[4 + i], i < 4.
 __device__ __forceinline__ void load_weight_step(const int8_t* wl, int k, int hidden,
@@ -140,19 +125,15 @@ __device__ __forceinline__ void load_weight_step(const int8_t* wl, int k, int hi
   }
 }
 
-// dst (op)= mm(act, w) + bias for one H x H layer; `a_tile` is the layer's
-// input as the mode's products take it: q (int8, pitch H + kQPad) for the
-// a8w8 modes, bf16 (pitch H + kBf16Pad) for kW8. w is (H, H) int8 in (in,
-// out) layout. Each warp takes 32 output columns at a time as four mma
+// dst (op)= mm(act, w) + bias for one H x H layer; `q` is the layer's
+// input quantized (int8, pitch H + kQPad). w is (H, H) int8 in (in, out)
+// layout. Each warp takes 32 output columns at a time as four mma
 // n-tiles: lane (g, t) = (lane / 4, lane % 4) loads w[k + 4t + i][cb + 4g ..
 // + 3] for i < 4, so n-tile c holds the columns cb + 4n + c (n < 8). Its
-// accumulators then cover columns cb + 8t .. + 7 of rows g and g + 8.
-//   a8w8: the 4x4 bytes are transposed into the B fragments of m16n8k32.
-//   kW8:  a 32-row k-step is two m16n8k16 bf16 steps; in each, the mma's k
-//         order is permuted as in load_a_bf16, so rows 4t, 4t+1 | 4t+2, 4t+3
-//         of the half-step are lane (g, t)'s two B registers.
+// accumulators then cover columns cb + 8t .. + 7 of rows g and g + 8. The
+// 4x4 bytes are transposed into the B fragments of m16n8k32.
 template <int M>
-__device__ void int8w_layer(const void* a_tile, const float* row_scale,
+__device__ void int8w_layer(const int8_t* q, const float* row_scale,
                             const int8_t* __restrict__ w, const float* __restrict__ oscale,
                             const float* __restrict__ bias, float* dst, int hidden,
                             Epilogue epilogue) {
@@ -160,22 +141,14 @@ __device__ void int8w_layer(const void* a_tile, const float* row_scale,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int8_t* q = static_cast<const int8_t*>(a_tile);
-  const __nv_bfloat16* abf = static_cast<const __nv_bfloat16*>(a_tile);
   const int8_t* q_lo = q + g * (hidden + kQPad) + 4 * t;            // row g
   const int8_t* q_hi = q + (g + 8) * (hidden + kQPad) + 4 * t;      // row g + 8
-  const __nv_bfloat16* a_lo = abf + g * (hidden + kBf16Pad) + 4 * t;
-  const __nv_bfloat16* a_hi = abf + (g + 8) * (hidden + kBf16Pad) + 4 * t;
   for (int cb = warp * 32; cb < hidden; cb += kWarps * 32) {
     int iacc[4][4];
-    float facc[4][4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        iacc[c][i] = 0;
-        facc[c][i] = 0.f;
-      }
+      for (int i = 0; i < 4; ++i) iacc[c][i] = 0;
 
     // Weight words of kPrefetch k-steps stay in flight in a register ring:
     // step k's slot is refilled with step k + kPrefetch * 32 right after it
@@ -192,28 +165,16 @@ __device__ void int8w_layer(const void* a_tile, const float* row_scale,
 #pragma unroll
         for (int i = 0; i < 8; ++i) words[i] = ring[st][i];
         if (k + 32 * kPrefetch < hidden) load_weight_step(wl, k + 32 * kPrefetch, hidden, ring[st]);
-        if constexpr (M == kW8) {
+        uint32_t blo[4], bhi[4];
+        transpose4x4(words, blo);
+        transpose4x4(words + 4, bhi);
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(q_lo + k);
+        a[1] = *reinterpret_cast<const uint32_t*>(q_hi + k);
+        a[2] = *reinterpret_cast<const uint32_t*>(q_lo + k + 16);
+        a[3] = *reinterpret_cast<const uint32_t*>(q_hi + k + 16);
 #pragma unroll
-          for (int kh = 0; kh < 2; ++kh) {
-            uint32_t a[4];
-            load_a_bf16(a_lo + k + 16 * kh, a_hi + k + 16 * kh, a);
-            const uint32_t* wd = words + 4 * kh;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              mma_bf16(facc[c], a, widen_pair(wd[0], wd[1], c), widen_pair(wd[2], wd[3], c));
-          }
-        } else {
-          uint32_t blo[4], bhi[4];
-          transpose4x4(words, blo);
-          transpose4x4(words + 4, bhi);
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(q_lo + k);
-          a[1] = *reinterpret_cast<const uint32_t*>(q_hi + k);
-          a[2] = *reinterpret_cast<const uint32_t*>(q_lo + k + 16);
-          a[3] = *reinterpret_cast<const uint32_t*>(q_hi + k + 16);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) mma_s8(iacc[c], a, blo[c], bhi[c]);
-        }
+        for (int c = 0; c < 4; ++c) mma_s8(iacc[c], a, blo[c], bhi[c]);
       }
     }
 
@@ -234,10 +195,8 @@ __device__ void int8w_layer(const void* a_tile, const float* row_scale,
           const int e = 2 * half + p;
           if constexpr (M == kDynamic)   // acc * (row_scale * col_scale) + b
             v[c] = __fadd_rn(__fmul_rn(__int2float_rn(iacc[c][e]), __fmul_rn(s, osv[c])), bsv[c]);
-          else if constexpr (M == kStatic)   // acc * out_scale + b
+          else                               // acc * out_scale + b
             v[c] = __fadd_rn(__fmul_rn(__int2float_rn(iacc[c][e]), osv[c]), bsv[c]);
-          else                               // f32 acc * col_scale + b
-            v[c] = __fadd_rn(__fmul_rn(facc[c][e], osv[c]), bsv[c]);
         }
         store4(dst + r * hidden + j0, v, epilogue);
       }
@@ -245,21 +204,18 @@ __device__ void int8w_layer(const void* a_tile, const float* row_scale,
   }
 }
 
-// The layer's input `act` (kTileRows, H) f32 into the mode's a_tile.
+// The layer's input `act` (kTileRows, H) f32 quantized into q.
 template <int M>
-__device__ void prepare_input(const float* act, void* a_tile, float* row_scale, float inv_in,
+__device__ void prepare_input(const float* act, int8_t* q, float* row_scale, float inv_in,
                               int hidden) {
   if constexpr (M == kDynamic)
-    quantize_rows_dynamic(act, static_cast<int8_t*>(a_tile), row_scale, hidden);
-  else if constexpr (M == kStatic)
-    quantize_rows_static(act, static_cast<int8_t*>(a_tile), inv_in, hidden);
+    quantize_rows_dynamic(act, q, row_scale, hidden);
   else
-    round_rows_bf16(act, static_cast<__nv_bfloat16*>(a_tile), hidden);
+    quantize_rows_static(act, q, inv_in, hidden);
 }
 
-__host__ __device__ constexpr size_t a_tile_bytes(int mode, int hidden) {
-  return mode == kW8 ? static_cast<size_t>(kTileRows) * (hidden + kBf16Pad) * 2
-                     : static_cast<size_t>(kTileRows) * (hidden + kQPad);
+__host__ __device__ constexpr size_t q_tile_bytes(int hidden) {
+  return static_cast<size_t>(kTileRows) * (hidden + kQPad);
 }
 
 template <int M>
@@ -274,8 +230,8 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
   extern __shared__ __align__(16) unsigned char smem[];
   float* y = reinterpret_cast<float*>(smem);                      // (16, H) f32
   float* h = y + kTileRows * hidden;                              // (16, H) f32
-  unsigned char* a_tile = reinterpret_cast<unsigned char*>(h + kTileRows * hidden);
-  float* xs = reinterpret_cast<float*>(a_tile + a_tile_bytes(M, hidden));  // (16, in)
+  int8_t* q = reinterpret_cast<int8_t*>(h + kTileRows * hidden);   // (16, H + kQPad)
+  float* xs = reinterpret_cast<float*>(q + q_tile_bytes(hidden));  // (16, in)
   float* row_scale = xs + kTileRows * in_dim;                     // (16,) f32
 
   const int row0 = blockIdx.x * kTileRows;
@@ -288,9 +244,9 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
   // One H x H layer: dst (op)= mm(src, W_i).
   auto layer = [&](const float* src, int i, float* dst, Epilogue epilogue) {
     const float inv = M == kStatic ? inv_in[i] : 0.f;
-    prepare_input<M>(src, a_tile, row_scale, inv, hidden);
+    prepare_input<M>(src, q, row_scale, inv, hidden);
     __syncthreads();
-    int8w_layer<M>(a_tile, row_scale, wq + i * hh, oscale + i * hidden,
+    int8w_layer<M>(q, row_scale, wq + i * hh, oscale + i * hidden,
                    bstack + i * hidden, dst, hidden, epilogue);
     __syncthreads();
   };
@@ -298,7 +254,7 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
   const int n_stage = (n_mm - 2) / 2;
   for (int s = 0; s < n_stage; ++s) {
     layer(y, 2 * s, h, kRelu);
-    // The second layer reads only a_tile, so its output adds straight into y.
+    // The second layer reads only q, so its output adds straight into y.
     layer(h, 2 * s + 1, y, kAddRelu);
   }
   layer(y, n_mm - 2, h, kStore);                                   // y2 -> h
@@ -312,13 +268,12 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
 extern "C" {
 
 // Dynamic shared memory one block of `mode` needs.
-size_t int8w_mlp_smem_bytes(int mode, int hidden, int in_dim) {
-  return static_cast<size_t>(kTileRows) * hidden * 2 * sizeof(float) +
-         a_tile_bytes(mode, hidden) +
+size_t int8w_mlp_smem_bytes(int hidden, int in_dim) {
+  return static_cast<size_t>(kTileRows) * hidden * 2 * sizeof(float) + q_tile_bytes(hidden) +
          static_cast<size_t>(kTileRows) * in_dim * sizeof(float) + kTileRows * sizeof(float);
 }
 
-// Launches `mode` (0 dynamic, 1 static, 2 w8) on `stream`; returns the
+// Launches `mode` (0 dynamic, 1 static) on `stream`; returns the
 // cudaError_t of the attribute call or of the launch (0 on success). inv_in
 // is read by the static mode only. The caller checks shapes and
 // hidden % 128.
@@ -328,11 +283,9 @@ int int8w_mlp_forward(int mode, const float* x, const void* w0, const float* b0,
                       const void* wfin, const float* bfin, float* out, int m, int in_dim,
                       int hidden, int n_mm, int out_dim, void* stream) {
   if (m == 0) return 0;
-  if (mode < kDynamic || mode > kW8) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = int8w_mlp_smem_bytes(mode, hidden, in_dim);
-  auto kernel = mode == kDynamic ? int8w_mlp_kernel<kDynamic>
-                : mode == kStatic ? int8w_mlp_kernel<kStatic>
-                                  : int8w_mlp_kernel<kW8>;
+  if (mode != kDynamic && mode != kStatic) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = int8w_mlp_smem_bytes(hidden, in_dim);
+  auto kernel = mode == kDynamic ? int8w_mlp_kernel<kDynamic> : int8w_mlp_kernel<kStatic>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -345,7 +298,10 @@ int int8w_mlp_forward(int mode, const float* x, const void* w0, const float* b0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// What an error code of this library's C functions means: a cudaError_t,
+// or >= 1000 for a TMA descriptor that failed to encode (wgmma_layer.cu).
 const char* mlp_error_string(int code) {
+  if (code >= 1000) return "cuTensorMapEncodeTiled failed (CUresult = code - 1000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

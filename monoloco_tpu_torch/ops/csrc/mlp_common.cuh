@@ -1,8 +1,8 @@
-// Pieces shared by the folded-MLP kernels for Hopper (dyn8_mlp.cu and
-// fused_mlp.cu): the 16-row tile, the tensor-core instructions, the epilogue
-// stores, and the input projection and heads, which every kernel runs on
-// CUDA cores in f32 sums (their widths, in_dim and out_dim, are too narrow
-// for an mma tile).
+// Pieces shared by the folded-MLP kernels for Hopper: the 16-row tile of
+// dyn8_mlp.cu and fused_mlp.cu, its epilogue stores, input projection and
+// heads, which those kernels run on CUDA cores in f32 sums (their widths,
+// in_dim and out_dim, are too narrow for an mma tile); and the epilogue
+// codes and bf16 rounding that wgmma_layer.cu uses too.
 //
 // Float operations use explicit _rn intrinsics so that nvcc contracts
 // nothing into an FMA it was not asked for.
@@ -21,11 +21,6 @@ constexpr int kWarps = kThreads / 32;
 // k-steps whose weight loads are in flight at once in a layer's register
 // ring; it divides 4, so that hidden % 128 == 0 makes whole rounds.
 constexpr int kPrefetch = 4;
-// Row pitch pad, in elements, of the bf16 activation tile that feeds the
-// bf16 mma: H + 16 puts a half-warp's 8-byte A-fragment loads in 32
-// different banks (H is a multiple of 128).
-constexpr int kBf16Pad = 16;
-
 enum Epilogue { kStore = 0, kRelu = 1, kAddRelu = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -42,40 +37,6 @@ template <> __device__ __forceinline__ float act_in<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// acc (16x8, f32) += A (16x16, bf16, row-major) x B (16x8, bf16, col-major).
-__device__ __forceinline__ void mma_bf16(float acc[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragments of one bf16 k16-step for lane (g, t), with the step's k
-// order permuted so that each register pair is one 8-byte load: the mma's
-// k = 2t, 2t+1 | 2t+8, 2t+9 are the step's columns 4t, 4t+1 | 4t+2, 4t+3.
-// The B fragments must use the same permutation (a sum does not care).
-// `lo` and `hi` point at rows g and g + 8, column 4t of the step.
-__device__ __forceinline__ void load_a_bf16(const __nv_bfloat16* lo, const __nv_bfloat16* hi,
-                                            uint32_t a[4]) {
-  const uint2 l = *reinterpret_cast<const uint2*>(lo);
-  const uint2 h = *reinterpret_cast<const uint2*>(hi);
-  a[0] = l.x;
-  a[1] = h.x;
-  a[2] = l.y;
-  a[3] = h.y;
-}
-
-// dst[r][j] = bf16(src[r][j]) for the tile, into a buffer of pitch H + kBf16Pad.
-__device__ inline void round_rows_bf16(const float* src, __nv_bfloat16* dst, int hidden) {
-  for (int i = threadIdx.x; i < kTileRows * hidden; i += kThreads) {
-    const int r = i / hidden;
-    const int k = i % hidden;
-    dst[r * (hidden + kBf16Pad) + k] = __float2bfloat16_rn(src[i]);
-  }
-}
 
 // d[0..3] (op)= v[0..3], with op the layer's epilogue; d is 16-byte aligned.
 __device__ __forceinline__ void store4(float* d, const float v[4], Epilogue epilogue) {

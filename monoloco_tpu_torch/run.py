@@ -28,7 +28,7 @@ def cli(argv=None):
     predict_parser.add_argument('--json-output', default=None, nargs='?', const=True,
                                 help='whether to output a pifpaf json file')
     predict_parser.add_argument('--disable-cuda', dest='disable_cuda', action='store_true',
-                                help='run on the CPU even where a CUDA device exists')
+                                help='run on the CPU; without it predict needs a CUDA card')
     predict_parser.add_argument('--activities', nargs='+',
                                 choices=['raise_hand', 'social_distance'], default=[],
                                 help='activities to show (not ported)')

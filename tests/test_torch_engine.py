@@ -10,6 +10,7 @@ max (loose) error, since a last-ulp difference can flip one quantization tie.
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -221,6 +222,36 @@ def test_refuses_what_is_not_ported(monkeypatch):
         assert serving_precision() == canon
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_no_card_means_no_silent_cpu_fallback(monkeypatch):
+    """Without a card, the engine and the predict CLI refuse to run unless
+    asked for the CPU (device='cpu', --disable-cuda)."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    params, bn = _toy_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.default_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Loco(model=params_from_numpy(params, bn), mode='mono')
+    net = Loco(model=params_from_numpy(params, bn), mode='mono', device='cpu')
+    assert net.device.type == 'cpu'
+    kps, kks = _toy_batch(n_img=1)
+    assert net.forward(kps[0], kks[0])['xyzd'].shape == (len(kps[0]), 4)
+
+
+def test_predict_cli_without_a_card_needs_disable_cuda(monkeypatch, tmp_path):
+    from monoloco_tpu_torch import run
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    img = str(tmp_path / 'im.png')
+    shutil.copy(os.path.join(HERE, 'fixture_002282.png'), img)
+    shutil.copy(os.path.join(HERE, 'fixture_002282.pifpaf.json'), img + '.pifpaf.json')
+    argv = ['predict', img, '--model', os.path.join(GOLD, 'model_tpu.pkl'),
+            '--output_types', 'json', '-o', str(tmp_path / 'out')]
+    with pytest.raises(RuntimeError, match='--disable-cuda'):
+        run.main(argv)
+    net = run.main(argv + ['--disable-cuda'])
+    assert net.device.type == 'cpu' and net.n_dispatches == 1
+    assert os.listdir(tmp_path / 'out')
 
 
 def test_jax_backend_is_cpu_for_the_reference():
