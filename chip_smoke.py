@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
 Phases (each prints its lines; any failure exits non-zero, nothing falls back
 to the CPU):
  1. Device: card name and power limit, torch and CUDA versions, and the
-    build of the dyn8 kernel from monoloco_tpu_torch/ops/csrc/.
+    build of the kernels from monoloco_tpu_torch/ops/csrc/.
  2. Kernel vs plain at full width (hidden 1024, 3 stages, 34 -> 9, weights
     from a seed with perturbed BN statistics) for m in M_ROWS.
  3. Row independence: kernel(x[:m]) == kernel(x)[:m] bit for bit.
@@ -16,14 +16,18 @@ to the CPU):
  5. Reference agreement: the f32 engine on the byte-compat checkpoint and
     fixture against the reference's out.monoloco.json.
  6. Times on the card at 131072 x 34: every kernel and its plain version,
-    and the f32 and bf16 folded MLPs in `torch.matmul`; for K1-bf16 and K5,
-    the device time of each CUDA kernel of one call (torch.profiler) and
-    the peak device memory of one call (their activation scratch).
+    and the f32 and bf16 folded MLPs in `torch.matmul`; dyn8 also at 1024
+    rows, the predict dispatch; for the layered kernels (K1-bf16, K1-f32,
+    dyn8, K5), the device time of each CUDA kernel of one call
+    (torch.profiler, the per-call weight transposes included) and the peak
+    device memory of one call (their activation scratch).
  7. The K1 (bf16 and f32 weights), static a8w8 (K4) and w8a16 (K5) kernels
     against their plain versions at full width for m in M_ROWS, and at
     68 -> 10 for m = 77; row independence bit for bit; launch counters; and
-    one H x H layer of csrc/wgmma_layer.cu (bf16 and int8 weights) against
-    its plain layer at 131072 x 1024.
+    at 131072 x 1024 one H x H layer against its plain layer: of
+    csrc/wgmma_layer.cu (bf16 and int8 weights, 'add_relu'), a 3xTF32 layer
+    of csrc/wgmma_layer_kmajor.cu ('add_relu', within 1e-5 (1 + |ref|)) and
+    a dyn8 layer (row quantization + s8 layer, each epilogue, bit for bit).
  8. The serving bench and the ablation tools, as a user runs them:
     `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
     int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
@@ -32,13 +36,16 @@ to the CPU):
     each kernel variant must have launched its kernel.
 The launch counts of the report are those of the main-path runs (phases 4
 and 8, each with every count set to 0 just before it); a count is one call
-of the kernel's entry, which for K1-bf16 and K5 makes 2S + 4 (K5: 2S + 5)
-CUDA launches. Each report entry has its time, its plain version's, the
-bound (the larger of its operations over the card's peak for their type and
-its bytes over 3.35 TB/s, from this run's shapes) and `library_ms`, the
-`torch.matmul` MLP of the same weight type where there is one. The line
-before the last is the kernel report (JSON); the last line is
-{"ok": true, "device": {...}}.
+of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16, 2S + 5
+for K5 and K1-f32, and 4S + 7 for dyn8. Each report entry has its time, its
+plain version's, the bound (the larger of its operations over the card's
+peak for their type and its bytes over 3.35 TB/s, from this run's shapes)
+and `library_ms`, the `torch.matmul` MLP of the same weight type where there
+is one. K1-f32's operations are counted three times at the TF32
+tensor-core peak: the least time in which this card computes an
+f32-accurate product is 3xTF32 on the tensor cores, not one pass on the
+CUDA cores (67 TFLOP/s). The line before the last is the kernel report
+(JSON); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -77,7 +84,8 @@ BYTE_COMPAT_TOL = 1e-4     # 1e-3 for confs (tests/test_byte_compat.py)
 #    in the last bits, so roundings flip in most rows: max abs 5e-2, mean
 #    <= 5e-3 of the mean output, and no further from the f32 MLP than 1.25x
 #    the plain version (m >= 512);
-#  f32 weights (K1-f32): max abs 1e-4 (1024-term f32 sums in two orders).
+#  f32 weights (K1-f32): max abs 1e-4 (3xTF32 products, which drop
+#    a_small w_small, summed by the tensor cores in their own order).
 F32_TOL_MAX_ABS = 1e-4
 BF16_TOL_MEAN_REL = 5e-3
 BF16_VS_F32 = 1.25
@@ -85,9 +93,12 @@ BF16_VS_F32 = 1.25
 # and since only one f32 sum's order differs, at most LAYER_TOL_OFF of the
 # bf16 outputs differ at all and the f32 residual stays within 1e-5 (1 + |y|).
 LAYER_TOL_OFF = 0.01
+# One 3xTF32 layer against its plain layer: within F32_LAYER_TOL (1 + |ref|).
+F32_LAYER_TOL = 1e-5
+PREDICT_ROWS = 1024        # the predict dispatch of phase 4
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
-PEAK_OPS = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
+PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
 PEAK_BYTES = 3.35e12
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -311,6 +322,9 @@ def _time_ms(fn, x):
     return start.elapsed_time(end)
 
 
+LAYERED = ('fused_mlp_bf16', 'fused_mlp_f32', 'dyn8_mlp', 'w8_mlp')
+
+
 def phase_times(kernels, folded, smi):
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.bench import tree_map
@@ -336,9 +350,18 @@ def phase_times(kernels, folded, smi):
     for name, v in times.items():
         print(f"{name}: median {med[name]:.4f} ms over {len(v)} runs "
               f"(min {min(v):.4f}, max {max(v):.4f})")
-    for name in ('fused_mlp_bf16', 'w8_mlp'):
+    entry, plain, packed = kernels['dyn8_mlp']
+    small = make_inputs(PREDICT_ROWS, 'cuda')
+    with torch.inference_mode():
+        for name, fn in (('kernel', entry), ('plain', plain)):
+            for _ in range(3):
+                fn(packed, small)
+            v = [_time_ms(lambda u: fn(packed, u), small) for _ in range(21)]
+            print(f"dyn8_mlp {name} at {PREDICT_ROWS} rows: median {statistics.median(v):.4f} ms "
+                  f"over {len(v)} runs (min {min(v):.4f}, max {max(v):.4f})")
+    for name in LAYERED:
         launch_breakdown(name, *kernels[name][::2], x)
-    for name in ('fused_mlp_bf16', 'w8_mlp'):
+    for name in LAYERED:
         entry, _, packed = kernels[name]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -374,12 +397,14 @@ def launch_breakdown(name, entry, packed, x):
 
 def bound(name, packed, m):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    for one forward of m rows: operations over the peak of their type,
-    bytes (x, out and the packed weights, each once) over the memory rate."""
+    for one forward of m rows: operations over the peak of their type (for
+    K1-f32 three TF32 passes, 3xTF32), bytes (x, out and the packed weights,
+    each once) over the memory rate."""
     hidden, n_mm = packed[0].shape[1], packed[2].shape[0]
-    ops = 2 * m * (IN_DIM * hidden + n_mm * hidden * hidden + hidden * OUT_DIM)
+    op_type, passes = OP_TYPE[name]
+    ops = passes * 2 * m * (IN_DIM * hidden + n_mm * hidden * hidden + hidden * OUT_DIM)
     nbytes = m * (IN_DIM + OUT_DIM) * 4 + sum(t.numel() * t.element_size() for t in packed)
-    t_ops = ops / PEAK_OPS[OP_TYPE[name]]
+    t_ops = ops / PEAK_OPS[op_type]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
@@ -449,12 +474,18 @@ def phase_new_kernels(kernels, folded, stereo):
 
 
 def phase_layers(kernels):
-    """One H x H layer of csrc/wgmma_layer.cu per weight type, 'add_relu'
-    (the epilogue that reads and writes the most), against its plain layer."""
-    from monoloco_tpu_torch.ops import launches, layer_plain, loco_layer
+    """One H x H layer of each layer kernel at 131072 x 1024 against its
+    plain layer: csrc/wgmma_layer.cu per weight type and a 3xTF32 layer of
+    csrc/wgmma_layer_kmajor.cu, each 'add_relu' (the epilogue that reads and
+    writes the most); and a dyn8 layer (row quantization + s8 layer) per
+    epilogue, bit for bit against `_dynamic_layer` and its epilogue."""
+    from monoloco_tpu_torch.ops import (f32_layer_plain, launches, layer_plain, loco_layer,
+                                        loco_layer_dyn8, loco_layer_f32)
+    from monoloco_tpu_torch.ops.fused_mlp import _dynamic_layer
     m = TIMING_ROWS
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
-    a = torch.randn((m, HIDDEN), device='cuda', generator=gen).to(torch.bfloat16)
+    a32 = torch.randn((m, HIDDEN), device='cuda', generator=gen)
+    a = a32.to(torch.bfloat16)
     y0 = torch.randn((m, HIDDEN), device='cuda', generator=gen)
     for key, pack_name, oscale_at in (('wgmma_layer_bf16', 'fused_mlp_bf16', None),
                                       ('wgmma_layer_w8', 'w8_mlp', 4)):
@@ -476,6 +507,37 @@ def phase_layers(kernels):
         check(off <= LAYER_TOL_OFF and y_err <= 1e-5 and float(diff.max()) <= TOL_MAX_ABS
               and mean_rel <= BF16_TOL_MEAN_REL, f"{key} disagrees with its plain layer")
         del out, ref, y_k, y_p
+
+    f32_pack = kernels['fused_mlp_f32'][2]
+    w_stack, b_stack = f32_pack[2], f32_pack[3]
+    y_k, y_p = y0.clone(), y0.clone()
+    before = launches['wgmma_layer_f32']
+    out = loco_layer_f32(a32, w_stack[1], b_stack[1], 'add_relu', y_k)
+    torch.cuda.synchronize()
+    check(launches['wgmma_layer_f32'] == before + 1, "wgmma_layer_f32: counter did not rise")
+    ref = f32_layer_plain(a32, w_stack[1], b_stack[1], 'add_relu', y_p)
+    err = float(((out - ref).abs() / (1 + ref.abs())).max())
+    print(f"wgmma_layer_f32 m={m} x {HIDDEN} add_relu: max err / (1 + |ref|) {err:.3e}  "
+          f"max abs {float((out - ref).abs().max()):.3e}", flush=True)
+    check(out is y_k and err <= F32_LAYER_TOL, "wgmma_layer_f32 disagrees with its plain layer")
+    del out, ref, y_k, y_p
+
+    w8 = kernels['dyn8_mlp'][2]
+    wq, oscale, bias = w8[2][1], w8[4][1], w8[5][1]
+    v = _dynamic_layer(a32, wq, oscale, bias)
+    for epilogue, ref in (('store', v), ('relu', torch.relu(v)),
+                          ('add_relu', y0 + torch.relu(v))):
+        y_k = y0.clone()
+        before = launches['wgmma_layer_dyn8']
+        out, out_bf = loco_layer_dyn8(a32, wq, oscale, bias, epilogue, y_k)
+        torch.cuda.synchronize()
+        check(launches['wgmma_layer_dyn8'] == before + 1, "wgmma_layer_dyn8: counter did not rise")
+        n_off = int((out != ref).sum())
+        n_off_bf = int((out_bf != ref.to(torch.bfloat16)).sum())
+        print(f"wgmma_layer_dyn8 m={m} x {HIDDEN} {epilogue}: f32 outputs off {n_off}, "
+              f"bf16 outputs off {n_off_bf} (bit for bit: 0)", flush=True)
+        check(n_off == 0 and n_off_bf == 0, f"wgmma_layer_dyn8 {epilogue} is not its plain layer")
+        del out, out_bf, y_k
 
 
 def phase_bench():
@@ -528,13 +590,14 @@ REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
             'fused_mlp_f32': 'monoloco_tpu/ops/fused_mlp.py:63',
             'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
             'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
-SOURCES = {'dyn8_mlp': 'dyn8_mlp.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
-           'fused_mlp_f32': 'fused_mlp.cu', 'int8_static_mlp': 'dyn8_mlp.cu',
+SOURCES = {'dyn8_mlp': 'wgmma_layer_kmajor.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
+           'fused_mlp_f32': 'wgmma_layer_kmajor.cu', 'int8_static_mlp': 'dyn8_mlp.cu',
            'w8_mlp': 'wgmma_layer.cu'}
-# The type of each kernel's products (its bound) and the torch.matmul MLP
-# that computes the same function (library_ms), where there is one.
-OP_TYPE = {'dyn8_mlp': 'int8', 'fused_mlp_bf16': 'bf16', 'fused_mlp_f32': 'f32',
-           'int8_static_mlp': 'int8', 'w8_mlp': 'bf16'}
+# The type of each kernel's products and how many passes of them it makes
+# (its bound), and the torch.matmul MLP that computes the same function
+# (library_ms), where there is one.
+OP_TYPE = {'dyn8_mlp': ('int8', 1), 'fused_mlp_bf16': ('bf16', 1), 'fused_mlp_f32': ('tf32', 3),
+           'int8_static_mlp': ('int8', 1), 'w8_mlp': ('bf16', 1)}
 LIBRARY = {'fused_mlp_bf16': 'bf16 folded (torch.matmul)',
            'fused_mlp_f32': 'f32 folded (torch.matmul)',
            'w8_mlp': 'bf16 folded (torch.matmul)'}

@@ -1,15 +1,7 @@
-// Fused int8 folded Loco MLP for NVIDIA Hopper (sm_90a), in two modes, one
-// per Pallas kernel it replaces in monoloco_tpu/ops/fused_mlp.py:
-//
-//   kDynamic  K2/K3, `_kernel_int8` act_mode 'dynamic' (streaming) and
-//             `_kernel_int8_resident`: per-row a8w8 (dyn8).
-//   kStatic   K4, `_kernel_int8` act_mode 'static': a8w8 with the calibrated
-//             per-layer scalar inv_in.
-// (K5, act_mode 'none', w8a16, is wgmma_layer.cu.)
-//
-// K2 and K3 differ only in where the int8 weight stack lives on the TPU;
-// here one kernel serves both, and "resident" means the stack (8 MB at
-// hidden 1024) stays in the 50 MB L2 that every block reads it from.
+// Fused static-int8 folded Loco MLP for NVIDIA Hopper (sm_90a): K4,
+// `_kernel_int8` act_mode 'static' of monoloco_tpu/ops/fused_mlp.py (:367,
+// through `_fused_call_int8`), a8w8 with the calibrated per-layer scalar
+// inv_in. (dyn8, K2/K3, is wgmma_layer_kmajor.cu; K5 is wgmma_layer.cu.)
 //
 // One launch computes the whole folded forward for a tile of kTileRows rows:
 //   y   = relu(bf16(x) @ bf16(W0) + b0)                     f32 sum
@@ -17,12 +9,10 @@
 //   y2  = mm(y, W2);  aux = bf16(y2) @ bf16(Waux) + baux
 //   y3  = relu(mm(y2, W3f));  fin = bf16(y3) @ bf16(Wfin) + bfin
 //   out = [fin..., aux]                                     (m, out_dim) f32
-// where mm(a, W) is, in the float order of `_int8_mm` (fused_mlp.py:335-364):
-//   kDynamic  q = clip(rint(a * (127 / max(amax_row, 1e-8))), +-127);
-//             s8 x s8 -> s32; acc * (max(amax_row, 1e-8) * (1/127) * col_scale) + b
-//   kStatic   q = clip(rint(a * inv_in), +-127); s8 x s8 -> s32;
-//             acc * out_scale + b                (no row scale)
-// with explicit _rn intrinsics so nvcc contracts nothing into an FMA.
+// where mm(a, W) is, in the float order of `_int8_mm` 'static'
+// (fused_mlp.py:335-343): q = clip(rint(a * inv_in), +-127); s8 x s8 -> s32;
+// acc * out_scale + b (no row scale), with explicit _rn intrinsics so nvcc
+// contracts nothing into an FMA.
 //
 // The activations never leave the SM: y and h (f32) and the layer input (q,
 // int8) live in dynamic shared memory, about 16 * H * 9 bytes (144 KB at
@@ -40,10 +30,8 @@
 // of kPrefetch k-steps of weight words keeps those loads in flight. One
 // 256-thread block fills an SM's shared memory.
 //
-// A later PR should try the design of wgmma_layer.cu (one launch per layer,
-// 128-row tiles on TMA and wgmma, here s8 x s8 -> s32, with the per-row
-// quantization fused into the previous layer's epilogue), TMA multicast
-// across a cluster, and a persistent grid of one block per SM.
+// Next: the s8 layer kernel of wgmma_layer_kmajor.cu (128-row tiles on TMA
+// and wgmma), with the static quantization in place of the per-row one.
 
 #include "mlp_common.cuh"
 
@@ -54,31 +42,6 @@ namespace {
 // Row pitch of q in bytes: H + 16 puts the 32 lanes' A-fragment words in 32
 // different shared-memory banks (H is a multiple of 128).
 constexpr int kQPad = 16;
-
-enum Mode { kDynamic = 0, kStatic = 1 };
-
-// q[r][k] = clip(rint(act[r][k] * 127 / max(amax_r, 1e-8)), +-127) and
-// row_scale[r] = max(amax_r, 1e-8) * (1/127): one warp per row.
-__device__ void quantize_rows_dynamic(const float* act, int8_t* q, float* row_scale,
-                                      int hidden) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kTileRows; r += kWarps) {
-    const float* a = act + r * hidden;
-    float amax = 0.f;
-    for (int k = lane; k < hidden; k += 32) amax = fmaxf(amax, fabsf(a[k]));
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float safe = fmaxf(amax, 1e-8f);
-    const float inv = __fdiv_rn(127.0f, safe);
-    int8_t* qr = q + r * (hidden + kQPad);
-    for (int k = lane; k < hidden; k += 32) {
-      int v = __float2int_rn(__fmul_rn(a[k], inv));   // half to even
-      qr[k] = static_cast<int8_t>(min(max(v, -127), 127));
-    }
-    if (lane == 0) row_scale[r] = __fmul_rn(safe, 1.0f / 127.0f);
-  }
-}
 
 // q[r][k] = clip(rint(act[r][k] * inv_in), +-127), one scale for the tensor.
 __device__ void quantize_rows_static(const float* act, int8_t* q, float inv_in, int hidden) {
@@ -132,11 +95,9 @@ __device__ __forceinline__ void load_weight_step(const int8_t* wl, int k, int hi
 // + 3] for i < 4, so n-tile c holds the columns cb + 4n + c (n < 8). Its
 // accumulators then cover columns cb + 8t .. + 7 of rows g and g + 8. The
 // 4x4 bytes are transposed into the B fragments of m16n8k32.
-template <int M>
-__device__ void int8w_layer(const int8_t* q, const float* row_scale,
-                            const int8_t* __restrict__ w, const float* __restrict__ oscale,
-                            const float* __restrict__ bias, float* dst, int hidden,
-                            Epilogue epilogue) {
+__device__ void int8w_layer(const int8_t* q, const int8_t* __restrict__ w,
+                            const float* __restrict__ oscale, const float* __restrict__ bias,
+                            float* dst, int hidden, Epilogue epilogue) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -181,7 +142,6 @@ __device__ void int8w_layer(const int8_t* q, const float* row_scale,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {          // rows g and g + 8
       const int r = g + 8 * half;
-      const float s = M == kDynamic ? row_scale[r] : 0.f;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {                 // columns j0 .. j0 + 3
         const int j0 = cb + 8 * t + 4 * p;
@@ -192,11 +152,8 @@ __device__ void int8w_layer(const int8_t* q, const float* row_scale,
         float v[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int e = 2 * half + p;
-          if constexpr (M == kDynamic)   // acc * (row_scale * col_scale) + b
-            v[c] = __fadd_rn(__fmul_rn(__int2float_rn(iacc[c][e]), __fmul_rn(s, osv[c])), bsv[c]);
-          else                               // acc * out_scale + b
-            v[c] = __fadd_rn(__fmul_rn(__int2float_rn(iacc[c][e]), osv[c]), bsv[c]);
+          const int e = 2 * half + p;   // acc * out_scale + b
+          v[c] = __fadd_rn(__fmul_rn(__int2float_rn(iacc[c][e]), osv[c]), bsv[c]);
         }
         store4(dst + r * hidden + j0, v, epilogue);
       }
@@ -204,21 +161,10 @@ __device__ void int8w_layer(const int8_t* q, const float* row_scale,
   }
 }
 
-// The layer's input `act` (kTileRows, H) f32 quantized into q.
-template <int M>
-__device__ void prepare_input(const float* act, int8_t* q, float* row_scale, float inv_in,
-                              int hidden) {
-  if constexpr (M == kDynamic)
-    quantize_rows_dynamic(act, q, row_scale, hidden);
-  else
-    quantize_rows_static(act, q, inv_in, hidden);
-}
-
 __host__ __device__ constexpr size_t q_tile_bytes(int hidden) {
   return static_cast<size_t>(kTileRows) * (hidden + kQPad);
 }
 
-template <int M>
 __global__ void __launch_bounds__(kThreads)
 int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
                  const float* __restrict__ b0, const int8_t* __restrict__ wq,
@@ -232,7 +178,6 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
   float* h = y + kTileRows * hidden;                              // (16, H) f32
   int8_t* q = reinterpret_cast<int8_t*>(h + kTileRows * hidden);   // (16, H + kQPad)
   float* xs = reinterpret_cast<float*>(q + q_tile_bytes(hidden));  // (16, in)
-  float* row_scale = xs + kTileRows * in_dim;                     // (16,) f32
 
   const int row0 = blockIdx.x * kTileRows;
   load_tile_inputs<__nv_bfloat16>(x, xs, row0, m, in_dim);
@@ -243,11 +188,10 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
   const size_t hh = static_cast<size_t>(hidden) * hidden;
   // One H x H layer: dst (op)= mm(src, W_i).
   auto layer = [&](const float* src, int i, float* dst, Epilogue epilogue) {
-    const float inv = M == kStatic ? inv_in[i] : 0.f;
-    prepare_input<M>(src, q, row_scale, inv, hidden);
+    quantize_rows_static(src, q, inv_in[i], hidden);
     __syncthreads();
-    int8w_layer<M>(q, row_scale, wq + i * hh, oscale + i * hidden,
-                   bstack + i * hidden, dst, hidden, epilogue);
+    int8w_layer(q, wq + i * hh, oscale + i * hidden, bstack + i * hidden, dst, hidden,
+                epilogue);
     __syncthreads();
   };
 
@@ -267,30 +211,26 @@ int8w_mlp_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ 
 
 extern "C" {
 
-// Dynamic shared memory one block of `mode` needs.
+// Dynamic shared memory one block needs.
 size_t int8w_mlp_smem_bytes(int hidden, int in_dim) {
   return static_cast<size_t>(kTileRows) * hidden * 2 * sizeof(float) + q_tile_bytes(hidden) +
-         static_cast<size_t>(kTileRows) * in_dim * sizeof(float) + kTileRows * sizeof(float);
+         static_cast<size_t>(kTileRows) * in_dim * sizeof(float);
 }
 
-// Launches `mode` (0 dynamic, 1 static) on `stream`; returns the
-// cudaError_t of the attribute call or of the launch (0 on success). inv_in
-// is read by the static mode only. The caller checks shapes and
-// hidden % 128.
-int int8w_mlp_forward(int mode, const float* x, const void* w0, const float* b0,
+// Launches on `stream`; returns the cudaError_t of the attribute call or of
+// the launch (0 on success). The caller checks shapes and hidden % 128.
+int int8w_mlp_forward(const float* x, const void* w0, const float* b0,
                       const int8_t* wq, const float* inv_in, const float* oscale,
                       const float* bstack, const void* waux, const float* baux,
                       const void* wfin, const float* bfin, float* out, int m, int in_dim,
                       int hidden, int n_mm, int out_dim, void* stream) {
   if (m == 0) return 0;
-  if (mode != kDynamic && mode != kStatic) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = int8w_mlp_smem_bytes(hidden, in_dim);
-  auto kernel = mode == kDynamic ? int8w_mlp_kernel<kDynamic> : int8w_mlp_kernel<kStatic>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      int8w_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + kTileRows - 1) / kTileRows);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  int8w_mlp_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, static_cast<const __nv_bfloat16*>(w0), b0, wq, inv_in, oscale, bstack,
       static_cast<const __nv_bfloat16*>(waux), baux,
       static_cast<const __nv_bfloat16*>(wfin), bfin, out, m, in_dim, hidden, n_mm,
@@ -299,7 +239,7 @@ int int8w_mlp_forward(int mode, const float* x, const void* w0, const float* b0,
 }
 
 // What an error code of this library's C functions means: a cudaError_t,
-// or >= 1000 for a TMA descriptor that failed to encode (wgmma_layer.cu).
+// or >= 1000 for a TMA descriptor that failed to encode (wgmma_layer*.cu).
 const char* mlp_error_string(int code) {
   if (code >= 1000) return "cuTensorMapEncodeTiled failed (CUresult = code - 1000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,8 +1,8 @@
 // Pieces shared by the folded-MLP kernels for Hopper: the 16-row tile of
-// dyn8_mlp.cu and fused_mlp.cu, its epilogue stores, input projection and
-// heads, which those kernels run on CUDA cores in f32 sums (their widths,
-// in_dim and out_dim, are too narrow for an mma tile); and the epilogue
-// codes and bf16 rounding that wgmma_layer.cu uses too.
+// dyn8_mlp.cu (K4), its epilogue stores, input projection and heads, which
+// it runs on CUDA cores in f32 sums (their widths, in_dim and out_dim, are
+// too narrow for an mma tile); and the epilogue codes, the bf16 rounding and
+// the tf32 split that the layer kernels (wgmma_layer*.cu) use too.
 //
 // Float operations use explicit _rn intrinsics so that nvcc contracts
 // nothing into an FMA it was not asked for.
@@ -25,6 +25,23 @@ enum Epilogue { kStore = 0, kRelu = 1, kAddRelu = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, as an f32 whose 13 low bits are zero: adding half of the dropped
+// range to the magnitude bits carries into the kept ones. The plain version
+// is `split_tf32_plain` in ops/fused_mlp.py.
+__device__ __forceinline__ float tf32_round(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
+}
+
+// The 3xTF32 split of v0 and v1: big = tf32(v), small = tf32(v - big), so
+// that big + small is within 2^-22 |v| of v (v - big is exact in f32).
+__device__ __forceinline__ void store_tf32_split2(float* big, float* small, float v0, float v1) {
+  const float b0 = tf32_round(v0), b1 = tf32_round(v1);
+  *reinterpret_cast<float2*>(big) = make_float2(b0, b1);
+  *reinterpret_cast<float2*>(small) =
+      make_float2(tf32_round(__fsub_rn(v0, b0)), tf32_round(__fsub_rn(v1, b1)));
 }
 
 // What an activation becomes before a product with weights of type T: bf16

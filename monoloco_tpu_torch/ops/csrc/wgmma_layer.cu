@@ -8,7 +8,9 @@
 //   K5 `_kernel_int8` act_mode 'none' (:367, through `_fused_call_int8`),
 //      w8a16: bf16 activations times int8 weights (exact in bf16), f32 sums,
 //      the per-column scale on the output.
-// The f32-weight K1 stays in fused_mlp.cu, dyn8 and K4 in dyn8_mlp.cu.
+// The input projection and heads kernels here serve K1 with f32 weights too
+// (f32 flavours) and dyn8 (as they are); their H x H layers, whose operands
+// wgmma reads K-major only, are wgmma_layer_kmajor.cu; K4 is dyn8_mlp.cu.
 //
 // What bounds it. At hidden 1024 the eight H x H layers are 16.8 MFLOP a
 // row: 2.2 TFLOP at 131072 rows, 2.2 ms at the bf16 peak (989 TFLOP/s),
@@ -73,7 +75,6 @@ constexpr int kABytes = kBM * kBK * 2;   // 16 KB
 constexpr int kBoxBytes = 64 * kBK * 2;  // one 64-column box of a B tile, 8 KB
 constexpr int kInRows = 32;              // rows of an input-projection block
 constexpr int kMaxOut = 16;              // output columns the heads kernel takes
-constexpr int kTmaError = 1000;          // + CUresult of a failed descriptor encoding
 
 template <int BN>
 struct Layout {
@@ -266,14 +267,42 @@ layer_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ 
   }
 }
 
-// y = relu(bf16(x) @ w0 + b0) (f32, k in order, as mlp::input_layer) and
-// ybf = bf16(y), for kInRows rows a block; a thread owns columns 2 j and
-// 2 j + 1. The inputs sit in shared memory as (in_dim, kInRows), so one
-// 16-byte broadcast feeds four rows of both columns.
+// Two neighbouring weights, and eight activations (16-byte aligned), as
+// floats.
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// y = relu(act_in<T>(x) @ w0 + b0) (f32, k in order, as mlp::input_layer)
+// for kInRows rows a block, w0 of type T; a thread owns columns 2 j and
+// 2 j + 1. With bf16 weights out0 gets bf16(y); with f32 weights out0 and
+// out1 get y split into tf32 parts (mlp::tf32_split), the first operand of
+// the 3xTF32 layers. The inputs sit in shared memory as (in_dim, kInRows),
+// so one 16-byte broadcast feeds four rows of both columns.
+template <typename T>
 __global__ void __launch_bounds__(256)
-input_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
-             const float* __restrict__ b0, float* __restrict__ y,
-             __nv_bfloat16* __restrict__ ybf, int m, int in_dim, int hidden) {
+input_kernel(const float* __restrict__ x, const T* __restrict__ w0,
+             const float* __restrict__ b0, float* __restrict__ y, void* __restrict__ out0,
+             void* __restrict__ out1, int m, int in_dim, int hidden) {
   extern __shared__ float4 xs4[];   // (in_dim, kInRows) f32
   float* xs = reinterpret_cast<float*>(xs4);
   const int row0 = blockIdx.x * kInRows;
@@ -281,7 +310,7 @@ input_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
     const int r = i / in_dim;
     const int k = i % in_dim;
     xs[k * kInRows + r] =
-        row0 + r < m ? mlp::bf16_round(x[static_cast<size_t>(row0 + r) * in_dim + k]) : 0.f;
+        row0 + r < m ? mlp::act_in<T>(x[static_cast<size_t>(row0 + r) * in_dim + k]) : 0.f;
   }
   __syncthreads();
   for (int j = 2 * threadIdx.x; j < hidden; j += 2 * blockDim.x) {
@@ -289,8 +318,7 @@ input_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
 #pragma unroll
     for (int r = 0; r < kInRows; ++r) acc[r][0] = acc[r][1] = 0.f;
     for (int k = 0; k < in_dim; ++k) {
-      const float2 wv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(w0 + static_cast<size_t>(k) * hidden + j));
+      const float2 wv = load2(w0 + static_cast<size_t>(k) * hidden + j);
 #pragma unroll
       for (int r = 0; r < kInRows; r += 4) {
         const float4 xv = xs4[(k * kInRows + r) / 4];
@@ -310,37 +338,34 @@ input_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
       const float v1 = fmaxf(__fadd_rn(acc[r][1], b.y), 0.f);
       const size_t off = static_cast<size_t>(row0 + r) * hidden + j;
       *reinterpret_cast<float2*>(y + off) = make_float2(v0, v1);
-      *reinterpret_cast<__nv_bfloat162*>(ybf + off) = __floats2bfloat162_rn(v0, v1);
+      if constexpr (sizeof(T) == 4)
+        mlp::store_tf32_split2(static_cast<float*>(out0) + off, static_cast<float*>(out1) + off,
+                               v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out0) + off) =
+            __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-// The eight bf16 values of a 16-byte word as floats.
-__device__ __forceinline__ void unpack8(const uint4 w, float v[8]) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(u[i] << 16);
-    v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
-  }
-}
-
-// out[row] = [y3 @ wfin + bfin, y2 @ waux + baux]: one warp per row, lane l
-// sums k = 8 l + 256 i .. + 7 of every output column, then the warp adds
-// its lanes. The heads' weights sit in shared memory as f32 (out_dim, H).
+// out[row] = [y3 @ wfin + bfin, y2 @ waux + baux], activations and weights
+// of type T: one warp per row, lane l sums k = 8 l + 256 i .. + 7 of every
+// output column, then the warp adds its lanes. The heads' weights sit in
+// shared memory as f32 (out_dim, H).
+template <typename T>
 __global__ void __launch_bounds__(256)
-heads_kernel(const __nv_bfloat16* __restrict__ y2, const __nv_bfloat16* __restrict__ y3,
-             const __nv_bfloat16* __restrict__ waux, const float* __restrict__ baux,
-             const __nv_bfloat16* __restrict__ wfin, const float* __restrict__ bfin,
-             float* __restrict__ out, int m, int hidden, int out_dim) {
+heads_kernel(const T* __restrict__ y2, const T* __restrict__ y3, const T* __restrict__ waux,
+             const float* __restrict__ baux, const T* __restrict__ wfin,
+             const float* __restrict__ bfin, float* __restrict__ out, int m, int hidden,
+             int out_dim) {
   extern __shared__ float4 ws4[];   // (out_dim, hidden) f32
   float* ws = reinterpret_cast<float*>(ws4);
   const int n_fin = out_dim - 1;
   for (int i = threadIdx.x; i < hidden * out_dim; i += blockDim.x) {
     const int k = i / out_dim;
     const int c = i % out_dim;
-    ws[c * hidden + k] = __bfloat162float(c < n_fin ? wfin[static_cast<size_t>(k) * n_fin + c]
-                                                    : waux[k]);
+    ws[c * hidden + k] = mlp::to_f32(c < n_fin ? wfin[static_cast<size_t>(k) * n_fin + c]
+                                               : waux[k]);
   }
   __syncthreads();
   const int lane = threadIdx.x % 32;
@@ -352,8 +377,8 @@ heads_kernel(const __nv_bfloat16* __restrict__ y2, const __nv_bfloat16* __restri
     for (int k0 = 8 * lane; k0 < hidden; k0 += 256) {
       const size_t off = static_cast<size_t>(row) * hidden + k0;
       float v3[8], v2[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(y3 + off)), v3);
-      unpack8(__ldg(reinterpret_cast<const uint4*>(y2 + off)), v2);
+      load8(y3 + off, v3);
+      load8(y2 + off, v2);
 #pragma unroll
       for (int c = 0; c < kMaxOut; ++c) {
         if (c >= out_dim) break;
@@ -376,62 +401,47 @@ heads_kernel(const __nv_bfloat16* __restrict__ y2, const __nv_bfloat16* __restri
   }
 }
 
-// cuTensorMapEncodeTiled is a driver call; reaching it through the runtime's
-// entry-point query keeps the library free of -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
+template <typename T>
+int launch_input(const float* x, const void* w0, const float* b0, float* y, void* out0,
+                 void* out1, int m, int in_dim, int hidden, cudaStream_t stream) {
+  if (m == 0) return 0;
+  const size_t smem = static_cast<size_t>(kInRows) * in_dim * sizeof(float);
+  input_kernel<T><<<(m + kInRows - 1) / kInRows, 256, smem, stream>>>(
+      x, static_cast<const T*>(w0), b0, y, out0, out1, m, in_dim, hidden);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The current device's number of SMs; 0 or a cudaError_t.
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(err);
-}
-
-// A 2-D map over a row-major (outer, inner) bf16 array, in boxes of
-// box_outer rows x 64 columns (128 bytes, with the 128-byte swizzle);
-// returns 0 or an error code.
-int make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
-             uint32_t box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
-  const cuuint32_t box[2] = {64, box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                          strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kTmaError + static_cast<int>(res);
+template <typename T>
+int launch_heads(const void* y2, const void* y3, const void* waux, const float* baux,
+                 const void* wfin, const float* bfin, float* out, int m, int hidden, int out_dim,
+                 cudaStream_t stream) {
+  if (m == 0) return 0;
+  if (out_dim > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = hidden * out_dim * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(heads_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Every block stays resident and its warps loop over the rows.
+  int sms = 0, per_sm = 0;
+  int ierr = sm_count(&sms);
+  if (ierr) return ierr;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, heads_kernel<T>, 256, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int want = (m + 7) / 8;
+  const int blocks = want < sms * per_sm ? want : sms * per_sm;
+  heads_kernel<T><<<blocks, 256, smem, stream>>>(
+      static_cast<const T*>(y2), static_cast<const T*>(y3), static_cast<const T*>(waux), baux,
+      static_cast<const T*>(wfin), bfin, out, m, hidden, out_dim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kScaled, int BN>
 int launch_layer(const void* a, const void* w, const float* oscale, const float* bias, float* y,
                  void* out, int m, int hidden, int epilogue, cudaStream_t stream) {
   CUtensorMap a_map, b_map;
-  int err = make_map(&a_map, a, hidden, m, kBM);
+  int err = make_map(&a_map, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, hidden, m, kBM);
   if (err) return err;
-  err = make_map(&b_map, w, hidden, hidden, kBK);
+  err = make_map(&b_map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, hidden, hidden, kBK);
   if (err) return err;
   constexpr int smem = Layout<BN>::kSmemBytes;
   cudaError_t cerr = cudaFuncSetAttribute(layer_kernel<kScaled, BN>,
@@ -482,12 +492,17 @@ int widen_int8_forward(const void* src, void* dst, size_t n, void* stream) {
 // y (m, H) f32 = relu(bf16(x) @ w0 + b0) and ybf = bf16(y), w0 (in, H) bf16.
 int loco_input_forward(const float* x, const void* w0, const float* b0, float* y, void* ybf,
                        int m, int in_dim, int hidden, void* stream) {
-  if (m == 0) return 0;
-  const size_t smem = static_cast<size_t>(kInRows) * in_dim * sizeof(float);
-  input_kernel<<<(m + kInRows - 1) / kInRows, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<const __nv_bfloat16*>(w0), b0, y, static_cast<__nv_bfloat16*>(ybf), m,
-      in_dim, hidden);
-  return static_cast<int>(cudaGetLastError());
+  return launch_input<__nv_bfloat16>(x, w0, b0, y, ybf, nullptr, m, in_dim, hidden,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// y (m, H) f32 = relu(x @ w0 + b0), w0 (in, H) f32, and y's tf32 parts
+// (big, small), the first operand of the 3xTF32 layers.
+int loco_input_f32_forward(const float* x, const float* w0, const float* b0, float* y,
+                           float* big, float* small, int m, int in_dim, int hidden,
+                           void* stream) {
+  return launch_input<float>(x, w0, b0, y, big, small, m, in_dim, hidden,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // out (m, out_dim) f32 = [y3 @ wfin + bfin, y2 @ waux + baux], y2 and y3
@@ -495,25 +510,16 @@ int loco_input_forward(const float* x, const void* w0, const float* b0, float* y
 int loco_heads_forward(const void* y2, const void* y3, const void* waux, const float* baux,
                        const void* wfin, const float* bfin, float* out, int m, int hidden,
                        int out_dim, void* stream) {
-  if (m == 0) return 0;
-  if (out_dim > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = hidden * out_dim * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Every block stays resident and its warps loop over the rows.
-  int sms = 0, per_sm = 0;
-  int ierr = sm_count(&sms);
-  if (ierr) return ierr;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, heads_kernel, 256, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int want = (m + 7) / 8;
-  const int blocks = want < sms * per_sm ? want : sms * per_sm;
-  heads_kernel<<<blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y2), static_cast<const __nv_bfloat16*>(y3),
-      static_cast<const __nv_bfloat16*>(waux), baux, static_cast<const __nv_bfloat16*>(wfin),
-      bfin, out, m, hidden, out_dim);
-  return static_cast<int>(cudaGetLastError());
+  return launch_heads<__nv_bfloat16>(y2, y3, waux, baux, wfin, bfin, out, m, hidden, out_dim,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// The same with f32 activations and weights.
+int loco_heads_f32_forward(const float* y2, const float* y3, const float* waux,
+                           const float* baux, const float* wfin, const float* bfin, float* out,
+                           int m, int hidden, int out_dim, void* stream) {
+  return launch_heads<float>(y2, y3, waux, baux, wfin, bfin, out, m, hidden, out_dim,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,28 +8,38 @@ become three hand-written CUDA sources for Hopper:
   `_kernel_int8` act_mode 'none' (K5, w8a16, `fused_loco_forward_w8`): one
   launch for the input projection, one TMA + wgmma launch per H x H layer
   with the layer's epilogue fused, and one for the heads: 2S + 4 launches a
-  call, and for K5 one more that widens the int8 stack to bf16 first. `input_projection_plain`, `layer_plain` and `heads_plain` are the
-  plain versions of those launches, and `layered_forward_plain` chains them.
-- `csrc/fused_mlp.cu` replaces K1 with f32 weights, one launch a call;
-- `csrc/dyn8_mlp.cu` replaces `_kernel_int8` act_modes 'dynamic' and
-  'static' and `_kernel_int8_resident`, as two modes of one kernel, one
-  launch a call: 'dynamic' (K2/K3, `fused_loco_forward_dyn8` and its
-  `_resident` and `_auto` names) and 'static' (K4,
+  call, and for K5 one more that widens the int8 stack to bf16 first.
+  `input_projection_plain`, `layer_plain` and `heads_plain` are the plain
+  versions of those launches, and `layered_forward_plain` chains them.
+- `csrc/wgmma_layer_kmajor.cu` (with the input projection and heads of
+  `wgmma_layer.cu`) replaces K1 with f32 weights (`fused_loco_forward` on an
+  f32 pack) and `_kernel_int8` act_mode 'dynamic' with
+  `_kernel_int8_resident` (K2/K3, dyn8: `fused_loco_forward_dyn8` and its
+  `_resident` and `_auto` names) in the same layered design, with operands
+  wgmma reads K-major: K1-f32 as 3xTF32 layers on the tf32 parts of the
+  activations and of the transposed stack (2S + 5 launches a call), dyn8 as
+  a row quantization and an s8 layer per H x H layer (4S + 7 launches).
+  `split_tf32_plain`, `transpose_split_plain`, `f32_layer_plain`,
+  `transpose_int8_plain`, `quantize_rows_plain` and `s8_layer_plain` are
+  their plain launches; `layered_f32_forward_plain` and
+  `layered_dyn8_forward_plain` chain them.
+- `csrc/dyn8_mlp.cu` replaces `_kernel_int8` act_mode 'static' (K4,
   `fused_loco_forward_int8`, packed by `pack_folded_weights_int8` from a
-  calibration batch). dyn8 and K5 take the calibration-free pack
-  `pack_folded_weights_w8`: H x H layers as int8 with per-output-column
-  scales, the input projection and heads as bf16.
+  calibration batch) in one launch a call, a 16-row tile in shared memory.
+dyn8 and K5 take the calibration-free pack `pack_folded_weights_w8`: H x H
+layers as int8 with per-output-column scales, the input projection and heads
+as bf16.
 
 A wrapper runs the kernel's plain PyTorch version for a tensor on the CPU,
 and launches the kernel for a CUDA tensor, or raises; nothing falls back
 from the kernel to the plain version. The plain versions follow the float
-order of the Pallas kernels, except that their bf16 and int8 products sum in
-float64, where the sums are exact: so their result does not depend on the
-order of a sum, and a row never depends on the batch around it. `launches`
-counts the calls that ran on a card, per kernel: one per forward call (which
-for K1-bf16 and K5 makes 2S + 4 or 2S + 5 CUDA launches), and one per call of the
-single-layer entry `loco_layer`, so a run can show that it went through the
-kernels.
+order of the Pallas kernels, except that their bf16, int8 and f32 products
+sum in float64, where the sums are exact or nearly so: so their result does
+not depend on the order of a sum, and a row never depends on the batch
+around it. `launches` counts the calls that ran on a card, per kernel: one
+per forward call, whatever number of CUDA launches it makes, and one per
+call of a single-layer entry (`loco_layer`, `loco_layer_f32`,
+`loco_layer_dyn8`), so a run can show that it went through the kernels.
 
 The JAX entries take `tile` (rows per grid step, 512 by default); the
 wrappers accept it and ignore it, since the Hopper kernels fix their own
@@ -46,7 +56,8 @@ from .quant import quant_weight, quantize_folded
 # Kernel name -> launches on CUDA tensors in this process.
 launches = {'dyn8_mlp': 0, 'int8_static_mlp': 0, 'w8_mlp': 0,
             'fused_mlp_bf16': 0, 'fused_mlp_f32': 0,
-            'wgmma_layer_bf16': 0, 'wgmma_layer_w8': 0}
+            'wgmma_layer_bf16': 0, 'wgmma_layer_w8': 0,
+            'wgmma_layer_f32': 0, 'wgmma_layer_dyn8': 0}
 
 # The JAX package's VMEM budget for its resident flavour (int8: one byte per
 # element). On Hopper both flavours are one kernel and the stack is read
@@ -54,12 +65,9 @@ launches = {'dyn8_mlp': 0, 'int8_static_mlp': 0, 'w8_mlp': 0,
 # its JAX meaning.
 _RESIDENT_MAX_STACK_BYTES = 16 * 1024 * 1024
 
-_TILE_ROWS = 16          # kTileRows in csrc/mlp_common.cuh
+_TILE_ROWS = 16          # kTileRows in csrc/mlp_common.cuh (K4)
 _MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90
 _MAX_HEAD_OUTPUTS = 16    # kMaxOut in csrc/wgmma_layer.cu
-
-# act_mode -> (mode of csrc/dyn8_mlp.cu, launches key)
-_INT8W_MODES = {'dynamic': (0, 'dyn8_mlp'), 'static': (1, 'int8_static_mlp')}
 
 # Epilogue of an H x H layer -> its code (mlp::Epilogue, csrc/mlp_common.cuh).
 EPILOGUES = {'store': 0, 'relu': 1, 'add_relu': 2}
@@ -236,9 +244,6 @@ def w8_forward_plain(packed, x):
                   wq.shape[0], w0, b0, waux, baux, wfin, bfin)
 
 
-_INT8W_PLAIN = {'dynamic': dyn8_forward_plain, 'static': int8_static_forward_plain}
-
-
 # --- the layered forward of K1-bf16 and K5, launch by launch ---------------
 
 def input_projection_plain(x, w0, b0):
@@ -255,14 +260,7 @@ def layer_plain(a, w, bias, epilogue, oscale=None, y=None):
     v = _bf16_matmul(a, w)
     if oscale is not None:
         v = v * oscale[None, :]
-    v = v + bias[None, :]
-    if epilogue == 'relu':
-        v = torch.relu(v)
-    elif epilogue == 'add_relu':
-        v = y.add_(torch.relu(v))
-    elif epilogue != 'store':
-        raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUES)}")
-    return v.to(torch.bfloat16)
+    return _epilogue(v + bias[None, :], epilogue, y).to(torch.bfloat16)
 
 
 def heads_plain(y2, y3, waux, baux, wfin, bfin):
@@ -301,6 +299,114 @@ def layered_forward_plain(packed, x):
         bufs[dst] = layer_plain(bufs[src], wstack[i], bstack[i], epilogue,
                                 None if oscale is None else oscale[i], y)
     return heads_plain(bufs[1], bufs[0], waux, baux, wfin, bfin)
+
+
+# --- the layered forwards of K1-f32 and dyn8, launch by launch -------------
+
+def _tf32_round(t):
+    """f32 t rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as f32 with the 13 low bits zero: adding half the dropped
+    range to the magnitude bits carries into the kept ones (the float's
+    sign is a separate bit). mlp::tf32_round in csrc/mlp_common.cuh."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_plain(t):
+    """The 3xTF32 parts of f32 t: big = tf32(t), small = tf32(t - big); t -
+    big is exact in f32, and big + small is within 2^-22 |t| of t."""
+    big = _tf32_round(t)
+    return big, _tf32_round(t - big)
+
+
+def transpose_split_plain(wstack):
+    """The tf32 parts of the transposed f32 stack (n, H_in, H_out) ->
+    (n, H_out, H_in) each: the K-major operand of the 3xTF32 layers."""
+    return split_tf32_plain(wstack.transpose(-1, -2).contiguous())
+
+
+def f32_layer_plain(a, w, bias, epilogue, y=None):
+    """One H x H layer of K1-f32: v = a @ w + bias, a (m, H) and w (H, H)
+    f32, the sum rounded to f32 before the bias. Returns (m, H) f32: v for
+    'store', relu(v) for 'relu'; 'add_relu' adds relu(v) to the residual y
+    in place and returns y. The kernel reads a and w as their tf32 parts;
+    the plain layer takes the f32 values they stand for, with products
+    through float64."""
+    return _epilogue(_f64_matmul(a, w) + bias[None, :], epilogue, y)
+
+
+def _epilogue(v, epilogue, y):
+    if epilogue == 'relu':
+        return torch.relu(v)
+    if epilogue == 'add_relu':
+        return y.add_(torch.relu(v))
+    if epilogue != 'store':
+        raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUES)}")
+    return v
+
+
+def layered_f32_forward_plain(packed, x):
+    """The forward of K1-f32 as its kernels launch it (input projection,
+    2S + 2 layers, heads), one plain function per launch; bit for bit
+    `fused_forward_plain` on the f32 pack."""
+    w0, b0, wstack, bstack, waux, baux, wfin, bfin = packed
+    y = torch.relu(_f64_matmul(x, w0) + b0[None, :])
+    n_mm = wstack.shape[0]
+    for i in range(0, n_mm - 2, 2):
+        h = f32_layer_plain(y, wstack[i], bstack[i], 'relu')
+        f32_layer_plain(h, wstack[i + 1], bstack[i + 1], 'add_relu', y)
+    y2 = f32_layer_plain(y, wstack[n_mm - 2], bstack[n_mm - 2], 'store')
+    y3 = f32_layer_plain(y2, wstack[n_mm - 1], bstack[n_mm - 1], 'relu')
+    return torch.cat([_f64_matmul(y3, wfin) + bfin[None, :],
+                      _f64_matmul(y2, waux) + baux[None, :]], dim=1)
+
+
+def transpose_int8_plain(wq):
+    """The int8 stack (n, H_in, H_out) transposed to (n, H_out, H_in): the
+    K-major operand of the s8 layers."""
+    return wq.transpose(-1, -2).contiguous()
+
+
+def quantize_rows_plain(act):
+    """dyn8's row quantization of f32 act (m, H), in the float order of
+    `_int8_mm` 'dynamic': q (m, H) int8 and the row scales s (m,) f32."""
+    amax = act.abs().amax(dim=1, keepdim=True)
+    safe = torch.clamp(amax, min=1e-8)
+    inv = torch.full_like(safe, 127.0) / safe
+    q = torch.clamp(torch.round(act * inv), -127, 127).to(torch.int8)
+    return q, (safe * (1.0 / 127.0))[:, 0]
+
+
+def s8_layer_plain(q, s_row, wt, oscale, bias, epilogue, y=None):
+    """One dyn8 H x H layer on quantized rows: v = f32(q @ wt^T) * (s_row
+    * oscale) + bias, wt the transposed int8 weights (H_out, H_in); the
+    epilogue as `f32_layer_plain`. Returns (f32 result, its bf16 rounding);
+    for 'add_relu' the f32 result is y, updated in place."""
+    acc = (q.double() @ wt.double().T).float()
+    out = _epilogue(acc * (s_row[:, None] * oscale[None, :]) + bias[None, :], epilogue, y)
+    return out, out.to(torch.bfloat16)
+
+
+def layered_dyn8_forward_plain(packed, x):
+    """The forward of dyn8 as its kernels launch it (the transposed stack,
+    the input projection, a row quantization and an s8 layer per H x H
+    layer, the heads), one plain function per launch; bit for bit
+    `dyn8_forward_plain`."""
+    (w0, b0, wq, _inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
+    wt = transpose_int8_plain(wq)
+    y, _ = input_projection_plain(x, w0, b0)
+
+    def layer(act, i, epilogue, res=None):
+        return s8_layer_plain(*quantize_rows_plain(act), wt[i], oscale[i], bstack[i],
+                              epilogue, res)
+
+    n_mm = wq.shape[0]
+    for i in range(0, n_mm - 2, 2):
+        h, _ = layer(y, i, 'relu')
+        layer(h, i + 1, 'add_relu', y)
+    y2, y2_bf = layer(y, n_mm - 2, 'store')
+    _, y3_bf = layer(y2, n_mm - 1, 'relu')
+    return heads_plain(y2_bf, y3_bf, waux, baux, wfin, bfin)
 
 
 # --- kernels ----------------------------------------------------------------
@@ -364,10 +470,10 @@ def _launch(key, lib, x, out_dim, smem, call):
     return out
 
 
-def _int8w_kernel(packed, x, act_mode):
-    """Launch csrc/dyn8_mlp.cu in `act_mode` on x's device."""
+def _static_kernel(packed, x):
+    """Launch csrc/dyn8_mlp.cu (K4, static a8w8) on x's device."""
     (w0, b0, wq, inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
-    mode, key = _INT8W_MODES[act_mode]
+    key = 'int8_static_mlp'
     hidden, n_mm = w0.shape[1], wq.shape[0]
     expect = _expect(x, torch.bfloat16, w0, b0, bstack, waux, baux, wfin, bfin)
     expect.update(wq=(wq, torch.int8, (n_mm, hidden, hidden)),
@@ -381,31 +487,10 @@ def _int8w_kernel(packed, x, act_mode):
     lib = _build.load_library()
     return _launch(key, lib, x, out_dim, lib.int8w_mlp_smem_bytes(hidden, in_dim),
                    lambda out, stream: lib.int8w_mlp_forward(
-                       mode, x.data_ptr(), w0.data_ptr(), b0.data_ptr(), wq.data_ptr(),
+                       x.data_ptr(), w0.data_ptr(), b0.data_ptr(), wq.data_ptr(),
                        inv_in.data_ptr(), oscale.data_ptr(), bstack.data_ptr(),
                        waux.data_ptr(), baux.data_ptr(), wfin.data_ptr(), bfin.data_ptr(),
                        out.data_ptr(), m, in_dim, hidden, n_mm, out_dim, stream))
-
-
-def _fused_f32_kernel(packed, x):
-    """Launch csrc/fused_mlp.cu (f32 weights) on x's device."""
-    w0, b0, wstack, bstack, waux, baux, wfin, bfin = packed
-    key = 'fused_mlp_f32'
-    hidden, n_mm = w0.shape[1], wstack.shape[0]
-    expect = _expect(x, torch.float32, w0, b0, bstack, waux, baux, wfin, bfin)
-    expect['wstack'] = (wstack, torch.float32, (n_mm, hidden, hidden))
-    _check_args(key, x, expect)
-    if n_mm < 2 or n_mm % 2:
-        raise ValueError(f"{key} kernel: needs 2 * stages + 2 layers, got {n_mm}")
-    m, in_dim = x.shape
-    out_dim = wfin.shape[1] + 1
-    lib = _build.load_library()
-    return _launch(key, lib, x, out_dim, lib.fused_mlp_smem_bytes(hidden, in_dim),
-                   lambda out, stream: lib.fused_mlp_forward(
-                       x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-                       wstack.data_ptr(), bstack.data_ptr(), waux.data_ptr(),
-                       baux.data_ptr(), wfin.data_ptr(), bfin.data_ptr(), out.data_ptr(),
-                       m, in_dim, hidden, n_mm, out_dim, stream))
 
 
 def _layer_call(lib, a, w, bias, epilogue, oscale, y, out, stream):
@@ -439,14 +524,9 @@ def _layered_kernel(packed, x):
     expect['wstack'] = (wstack, torch.int8 if w8 else torch.bfloat16, (n_mm, hidden, hidden))
     if w8:
         expect['oscale'] = (oscale, torch.float32, (n_mm, hidden))
-    _check_args(key, x, expect)
-    if n_mm < 2 or n_mm % 2:
-        raise ValueError(f"{key} kernel: needs 2 * stages + 2 layers, got {n_mm}")
     m, in_dim = x.shape
     out_dim = wfin.shape[1] + 1
-    if out_dim > _MAX_HEAD_OUTPUTS:
-        raise ValueError(f"{key} kernel: the heads take at most {_MAX_HEAD_OUTPUTS} outputs, "
-                         f"got {out_dim}")
+    _check_layered(key, x, expect, n_mm, out_dim)
     out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
@@ -470,13 +550,166 @@ def _layered_kernel(packed, x):
     return out
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_layered(key, x, expect, n_mm, out_dim):
+    """_check_args, and the layer count and head width the layered forwards
+    take."""
+    _check_args(key, x, expect)
+    if n_mm < 2 or n_mm % 2:
+        raise ValueError(f"{key} kernel: needs 2 * stages + 2 layers, got {n_mm}")
+    if out_dim > _MAX_HEAD_OUTPUTS:
+        raise ValueError(f"{key} kernel: the heads take at most {_MAX_HEAD_OUTPUTS} outputs, "
+                         f"got {out_dim}")
+
+
+def _tf32x3_call(lib, a, wt, bias, epilogue, out, parts, stream):
+    """csrc/wgmma_layer_kmajor.cu on one 3xTF32 layer: a and wt are tf32
+    part pairs, out (f32) and parts (a pair) the outputs, each possibly
+    None; returns the C function's code."""
+    big, small = parts if parts is not None else (None, None)
+    return lib.tf32x3_layer_forward(
+        a[0].data_ptr(), a[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(), bias.data_ptr(),
+        _ptr(out), _ptr(big), _ptr(small), a[0].shape[0], a[0].shape[1], EPILOGUES[epilogue],
+        stream)
+
+
+def _transpose_split(key, lib, wstack, stream):
+    """The tf32 parts of the transposed f32 stack, made on the card."""
+    parts = [torch.empty(wstack.shape, dtype=torch.float32, device=wstack.device)
+             for _ in range(2)]
+    n = 1 if wstack.dim() == 2 else wstack.shape[0]
+    _raise_on(key, lib, lib.transpose_split_tf32_forward(
+        wstack.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), n, wstack.shape[-1], stream))
+    return parts
+
+
+def _layered_f32_kernel(packed, x):
+    """K1-f32 on x's device, as csrc/wgmma_layer_kmajor.cu launches it: the
+    tf32 parts of the transposed stack, the input projection (which also
+    splits y), 2S + 2 3xTF32 layers and the heads, on the current stream,
+    each launch checked. Scratch: y and two pairs of tf32 parts, (m, H) f32
+    each, and the two parts of the stack (n_mm, H, H) f32."""
+    w0, b0, wstack, bstack, waux, baux, wfin, bfin = packed
+    key = 'fused_mlp_f32'
+    hidden, n_mm = w0.shape[1], wstack.shape[0]
+    m, in_dim = x.shape
+    out_dim = wfin.shape[1] + 1
+    expect = _expect(x, torch.float32, w0, b0, bstack, waux, baux, wfin, bfin)
+    expect['wstack'] = (wstack, torch.float32, (n_mm, hidden, hidden))
+    _check_layered(key, x, expect, n_mm, out_dim)
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    y, *bufs = [torch.empty((m, hidden), dtype=torch.float32, device=x.device)
+                for _ in range(5)]
+    cur, nxt = bufs[:2], bufs[2:]
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = _stream(x.device)
+        wt = _transpose_split(key, lib, wstack, stream)
+        _raise_on(key, lib, lib.loco_input_f32_forward(
+            x.data_ptr(), w0.data_ptr(), b0.data_ptr(), y.data_ptr(), cur[0].data_ptr(),
+            cur[1].data_ptr(), m, in_dim, hidden, stream))
+
+        def layer(i, epilogue, res, parts):
+            _raise_on(key, lib, _tf32x3_call(lib, cur, (wt[0][i], wt[1][i]), bstack[i],
+                                             epilogue, res, parts, stream))
+
+        for i in range(0, n_mm - 2, 2):
+            layer(i, 'relu', None, nxt)
+            cur, nxt = nxt, cur
+            layer(i + 1, 'add_relu', y, nxt)
+            cur, nxt = nxt, cur
+        layer(n_mm - 2, 'store', y, nxt)          # y2 -> y (f32) and its parts
+        cur, nxt = nxt, cur
+        y3 = nxt[0]                               # free since the store read it
+        layer(n_mm - 1, 'relu', y3, None)
+        _raise_on(key, lib, lib.loco_heads_f32_forward(
+            y.data_ptr(), y3.data_ptr(), waux.data_ptr(), baux.data_ptr(), wfin.data_ptr(),
+            bfin.data_ptr(), out.data_ptr(), m, hidden, out_dim, stream))
+    launches[key] += 1
+    return out
+
+
+def _dyn8_layer_calls(key, lib, act, q, s_row, wt, oscale, bias, epilogue, out, out_bf,
+                      stream):
+    """One dyn8 layer on the card: the row quantization of f32 act into q and
+    s_row, then the s8 layer with its epilogue; each launch checked."""
+    m, hidden = act.shape
+    _raise_on(key, lib, lib.quantize_rows_forward(act.data_ptr(), q.data_ptr(),
+                                                  s_row.data_ptr(), m, hidden, stream))
+    _raise_on(key, lib, lib.s8_layer_forward(
+        q.data_ptr(), s_row.data_ptr(), wt.data_ptr(), oscale.data_ptr(), bias.data_ptr(),
+        _ptr(out), _ptr(out_bf), m, hidden, EPILOGUES[epilogue], stream))
+
+
+def _transpose_int8(key, lib, wq, stream):
+    """The transposed int8 stack, made on the card."""
+    wt = torch.empty(wq.shape, dtype=torch.int8, device=wq.device)
+    n = 1 if wq.dim() == 2 else wq.shape[0]
+    _raise_on(key, lib, lib.transpose_int8_forward(wq.data_ptr(), wt.data_ptr(), n,
+                                                   wq.shape[-1], stream))
+    return wt
+
+
+def _layered_dyn8_kernel(packed, x):
+    """dyn8 on x's device, as csrc/wgmma_layer_kmajor.cu launches it: the
+    transposed int8 stack, the input projection (wgmma_layer.cu), a row
+    quantization and an s8 layer per H x H layer, and the heads, on the
+    current stream, each launch checked. Scratch: y and h (m, H) f32, q (m,
+    H) int8, the row scales, two (m, H) bf16 buffers for the heads and the
+    transposed stack (n_mm, H, H) int8."""
+    (w0, b0, wq, inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
+    key = 'dyn8_mlp'
+    hidden, n_mm = w0.shape[1], wq.shape[0]
+    m, in_dim = x.shape
+    out_dim = wfin.shape[1] + 1
+    expect = _expect(x, torch.bfloat16, w0, b0, bstack, waux, baux, wfin, bfin)
+    expect.update(wq=(wq, torch.int8, (n_mm, hidden, hidden)),
+                  oscale=(oscale, torch.float32, (n_mm, hidden)))
+    _check_layered(key, x, expect, n_mm, out_dim)
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    y, h = (torch.empty((m, hidden), dtype=torch.float32, device=x.device) for _ in range(2))
+    q = torch.empty((m, hidden), dtype=torch.int8, device=x.device)
+    s_row = torch.empty((m,), dtype=torch.float32, device=x.device)
+    y2_bf, y3_bf = (torch.empty((m, hidden), dtype=torch.bfloat16, device=x.device)
+                    for _ in range(2))
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = _stream(x.device)
+        wt = _transpose_int8(key, lib, wq, stream)
+        _raise_on(key, lib, lib.loco_input_forward(
+            x.data_ptr(), w0.data_ptr(), b0.data_ptr(), y.data_ptr(), y2_bf.data_ptr(),
+            m, in_dim, hidden, stream))
+
+        def layer(act, i, epilogue, res, res_bf=None):
+            _dyn8_layer_calls(key, lib, act, q, s_row, wt[i], oscale[i], bstack[i], epilogue,
+                              res, res_bf, stream)
+
+        for i in range(0, n_mm - 2, 2):
+            layer(y, i, 'relu', h)
+            layer(h, i + 1, 'add_relu', y)
+        layer(y, n_mm - 2, 'store', h, y2_bf)    # y2: f32 in h, bf16 for the aux head
+        layer(h, n_mm - 1, 'relu', None, y3_bf)   # y3: bf16 for the fin head only
+        _raise_on(key, lib, lib.loco_heads_forward(
+            y2_bf.data_ptr(), y3_bf.data_ptr(), waux.data_ptr(), baux.data_ptr(),
+            wfin.data_ptr(), bfin.data_ptr(), out.data_ptr(), m, hidden, out_dim, stream))
+    launches[key] += 1
+    return out
+
+
 def _fused_kernel(packed, x):
     """K1 on x's device, by its weight type."""
     wdtype = packed[2].dtype
     if wdtype == torch.bfloat16:
         return _layered_kernel(packed, x)
     if wdtype == torch.float32:
-        return _fused_f32_kernel(packed, x)
+        return _layered_f32_kernel(packed, x)
     raise ValueError(f"fused_mlp kernel: weights must be bf16 or f32, got {wdtype}")
 
 
@@ -497,13 +730,38 @@ def _route(name, packed, x, plain, kernel):
 def fused_loco_forward(folded, x, dtype=torch.bfloat16, tile=512, packed=None):
     """K1 fused forward on (m, in) f32 inputs: returns (m, out) f32. Pass a
     pre-packed tuple (`pack_folded_weights`) to skip packing `folded` in
-    `dtype` per call. Requires hidden % 128 == 0. On a card, f32 weights run
-    csrc/fused_mlp.cu in one launch; bf16 weights run csrc/wgmma_layer.cu in
-    2S + 4 launches. Either counts one call in `launches`."""
+    `dtype` per call. Requires hidden % 128 == 0. On a card, bf16 weights
+    run csrc/wgmma_layer.cu in 2S + 4 launches, f32 weights
+    csrc/wgmma_layer_kmajor.cu's 3xTF32 layers in 2S + 5. Either counts one
+    call in `launches`."""
     del tile
     if packed is None:
         packed = pack_folded_weights(folded, dtype=dtype)
     return _route('fused forward', packed, x, fused_forward_plain, _fused_kernel)
+
+
+def _layer_device(a, epilogue, y):
+    """'cpu' or 'cuda' for a single-layer entry on a (m, H), or raise."""
+    if a.shape[1] % 128 != 0:
+        raise ValueError(f"layer kernel requires hidden % 128 == 0, got {a.shape[1]}")
+    if epilogue == 'add_relu' and y is None:
+        raise ValueError("the add_relu epilogue needs the residual y")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUES)}")
+    if a.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f"layer: no path for a tensor on {a.device}")
+    return a.device.type
+
+
+def _layer_expect(a, adtype, w, wdtype, bias, y, **more):
+    m, hidden = a.shape
+    f32 = torch.float32
+    expect = {'a': (a, adtype, (m, hidden)), 'w': (w, wdtype, (hidden, hidden)),
+              'bias': (bias, f32, (hidden,))}
+    expect.update({k: (t, f32, (hidden,)) for k, t in more.items()})
+    if y is not None:
+        expect['y'] = (y, f32, (m, hidden))
+    return expect
 
 
 def loco_layer(a, w, bias, epilogue, oscale=None, y=None):
@@ -513,30 +771,15 @@ def loco_layer(a, w, bias, epilogue, oscale=None, y=None):
     then the layer; counted once in launches['wgmma_layer_bf16' or
     'wgmma_layer_w8']). 'add_relu' updates the f32 residual y in place.
     Requires H % 128 == 0."""
-    m, hidden = a.shape
-    if hidden % 128 != 0:
-        raise ValueError(f"layer kernel requires hidden % 128 == 0, got {hidden}")
-    if epilogue == 'add_relu' and y is None:
-        raise ValueError("the add_relu epilogue needs the residual y")
-    if a.device.type == 'cpu':
+    if _layer_device(a, epilogue, y) == 'cpu':
         return layer_plain(a, w, bias, epilogue, oscale, y)
-    if a.device.type != 'cuda':
-        raise ValueError(f"layer: no path for a tensor on {a.device}")
     w8 = oscale is not None
     key = 'wgmma_layer_w8' if w8 else 'wgmma_layer_bf16'
-    f32 = torch.float32
-    expect = {'a': (a, torch.bfloat16, (m, hidden)),
-              'w': (w, torch.int8 if w8 else torch.bfloat16, (hidden, hidden)),
-              'bias': (bias, f32, (hidden,))}
-    if w8:
-        expect['oscale'] = (oscale, f32, (hidden,))
-    if y is not None:
-        expect['y'] = (y, f32, (m, hidden))
-    _check_args(key, a, expect)
-    if epilogue not in EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUES)}")
-    out = torch.empty((m, hidden), dtype=torch.bfloat16, device=a.device)
-    if m == 0:
+    more = {'oscale': oscale} if w8 else {}
+    _check_args(key, a, _layer_expect(a, torch.bfloat16, w, torch.int8 if w8 else torch.bfloat16,
+                                      bias, y, **more))
+    out = torch.empty(a.shape, dtype=torch.bfloat16, device=a.device)
+    if a.shape[0] == 0:
         return out
     lib = _build.load_library()
     with torch.cuda.device(a.device):
@@ -548,22 +791,79 @@ def loco_layer(a, w, bias, epilogue, oscale=None, y=None):
     return out
 
 
-def _int8w_forward(packed, x, act_mode):
-    return _route(f'int8 forward ({act_mode})', packed, x, _INT8W_PLAIN[act_mode],
-                  lambda p, v: _int8w_kernel(p, v, act_mode))
+def loco_layer_f32(a, w, bias, epilogue, y=None):
+    """One H x H layer of K1-f32, as `f32_layer_plain` computes it: a CPU
+    tensor runs `f32_layer_plain` (f32 products through float64), a CUDA
+    tensor launches csrc/wgmma_layer_kmajor.cu: the tf32 parts of a and of
+    w's transpose, then the 3xTF32 layer; counted once in
+    launches['wgmma_layer_f32']. Returns (m, H) f32; 'add_relu' updates the
+    residual y in place and returns it. Requires H % 128 == 0."""
+    if _layer_device(a, epilogue, y) == 'cpu':
+        return f32_layer_plain(a, w, bias, epilogue, y)
+    key = 'wgmma_layer_f32'
+    _check_args(key, a, _layer_expect(a, torch.float32, w, torch.float32, bias, y))
+    m, hidden = a.shape
+    out = y if epilogue == 'add_relu' else torch.empty_like(a)
+    if m == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(a.device):
+        stream = _stream(a.device)
+        wt = _transpose_split(key, lib, w, stream)
+        parts = [torch.empty_like(a) for _ in range(2)]
+        _raise_on(key, lib, lib.split_tf32_forward(a.data_ptr(), parts[0].data_ptr(),
+                                                   parts[1].data_ptr(), a.numel(), stream))
+        _raise_on(key, lib, _tf32x3_call(lib, parts, wt, bias, epilogue, out, None, stream))
+    launches[key] += 1
+    return out
+
+
+def loco_layer_dyn8(act, wq, oscale, bias, epilogue, y=None):
+    """One dyn8 H x H layer, as `quantize_rows_plain` then `s8_layer_plain`
+    compute it: a CPU tensor runs those, a CUDA tensor launches
+    csrc/wgmma_layer_kmajor.cu: the transposed int8 weights, the row
+    quantization of the f32 act and the s8 layer; counted once in
+    launches['wgmma_layer_dyn8']. Returns ((m, H) f32, (m, H) bf16);
+    'add_relu' updates the residual y in place and returns it as the f32
+    result. Requires H % 128 == 0."""
+    if _layer_device(act, epilogue, y) == 'cpu':
+        q, s_row = quantize_rows_plain(act)
+        return s8_layer_plain(q, s_row, transpose_int8_plain(wq), oscale, bias, epilogue, y)
+    key = 'wgmma_layer_dyn8'
+    _check_args(key, act, _layer_expect(act, torch.float32, wq, torch.int8, bias, y,
+                                        oscale=oscale))
+    m, hidden = act.shape
+    out = y if epilogue == 'add_relu' else torch.empty_like(act)
+    out_bf = torch.empty(act.shape, dtype=torch.bfloat16, device=act.device)
+    if m == 0:
+        return out, out_bf
+    q = torch.empty(act.shape, dtype=torch.int8, device=act.device)
+    s_row = torch.empty((m,), dtype=torch.float32, device=act.device)
+    lib = _build.load_library()
+    with torch.cuda.device(act.device):
+        stream = _stream(act.device)
+        wt = _transpose_int8(key, lib, wq, stream)
+        _dyn8_layer_calls(key, lib, act, q, s_row, wt, oscale, bias, epilogue, out, out_bf,
+                          stream)
+    launches[key] += 1
+    return out, out_bf
 
 
 def fused_loco_forward_dyn8(packed, x, tile=512):
     """Dynamic-int8 fused forward on (m, in) f32 inputs; packed from
     pack_folded_weights_w8. Returns (m, out) f32. Requires hidden % 128 == 0.
+    On a card: csrc/wgmma_layer_kmajor.cu's row quantizations and s8 layers
+    with wgmma_layer.cu's input projection and heads, 4S + 7 launches,
+    counted as one call in launches['dyn8_mlp'].
 
     The three JAX entry names — this one (streaming), `_resident` and `_auto`
-    — are one function here: on Hopper one kernel serves both residencies
-    (see csrc/dyn8_mlp.cu), so the JAX package's choice between them has
-    nothing to pick.
+    — are one function here: on Hopper the stack (8 MB at hidden 1024) is
+    read from L2 by every 128-row tile whatever its size, so the JAX
+    package's choice between them has nothing to pick.
     """
     del tile
-    return _int8w_forward(packed, x, 'dynamic')
+    return _route('int8 forward (dynamic)', packed, x, dyn8_forward_plain,
+                  _layered_dyn8_kernel)
 
 
 fused_loco_forward_dyn8_resident = fused_loco_forward_dyn8
@@ -573,9 +873,12 @@ fused_loco_forward_dyn8_auto = fused_loco_forward_dyn8
 def fused_loco_forward_int8(packed, x, tile=512):
     """Static a8w8 fused forward (K4) on (m, in) f32 inputs; packed from
     pack_folded_weights_int8. A measured ablation: static calibration is not
-    parity-grade on trained checkpoints (the JAX module's note)."""
+    parity-grade on trained checkpoints (the JAX module's note). On a card:
+    csrc/dyn8_mlp.cu, one launch; its 16-row tile holds the activations in
+    shared memory, which limits hidden to 1536."""
     del tile
-    return _int8w_forward(packed, x, 'static')
+    return _route('int8 forward (static)', packed, x, int8_static_forward_plain,
+                  _static_kernel)
 
 
 def fused_loco_forward_w8(packed, x, tile=512):

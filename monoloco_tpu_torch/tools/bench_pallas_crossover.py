@@ -6,16 +6,15 @@ weights through
   - the plain path, `folded_forward` on bf16 tensors (`torch.matmul`, as
     the JAX tool's XLA path), and
   - the K1 kernel, `fused_loco_forward` on bf16-packed weights
-    (csrc/fused_mlp.cu),
+    (csrc/wgmma_layer.cu),
 each in `scan` calls chained through the data and ended by one checksum
 fetch (the bench's methodology), median of 7 after a warm-up. Prints one
 JSON line per measurement, the wall per call and inferences/s, and a winner
 table; `--out` appends the lines to a file too.
 
-The kernel keeps a 16-row tile of f32 activations in shared memory, which
-bounds its hidden width (1408 with bf16 weights); a wider shape is measured
-on the plain path only and recorded with the kernel's own refusal, as the
-JAX tool records hidden 2048.
+The kernel takes any hidden % 128 == 0; another width is measured on the
+plain path only and recorded with the kernel's own refusal, as the JAX tool
+records the widths its kernel refuses.
 
 Usage: python -m monoloco_tpu_torch.tools.bench_pallas_crossover
            [--hiddens 256,1024,2048] [--batches 256,4096,65536,131072] [--out F]
@@ -84,7 +83,7 @@ def main(argv=None):
                 wall = time_fn(lambda v: fused_loco_forward(folded, v, packed=packed,
                                                             tile=min(512, batch)),
                                x, length)
-            except ValueError as exc:        # the kernel's shared-memory limit
+            except ValueError as exc:        # a width the kernel does not take
                 emit(dict(path='pallas', hidden=hidden, batch=batch, skipped=str(exc)))
                 continue
             emit(dict(path='pallas', hidden=hidden, batch=batch, scan=length,

@@ -8,14 +8,14 @@ CUDA kernel that replaces the Pallas one:
 
   xla-bf16     bf16 weights and activations, `torch.matmul`
   xla-int8     static int8 in plain torch (ops/quant.py `quantized_forward`)
-  pallas-bf16  K1 with bf16 weights (csrc/fused_mlp.cu)
-  pallas-w8    K5, weight-only int8 (csrc/dyn8_mlp.cu, mode 'none')
+  pallas-bf16  K1 with bf16 weights (csrc/wgmma_layer.cu)
+  pallas-w8    K5, weight-only int8 (csrc/wgmma_layer.cu)
   pallas-dyn8  K2/K3, per-row dynamic int8: what MONOLOCO_TPU_PRECISION=int8
-               serves (csrc/dyn8_mlp.cu, mode 'dynamic')
-  pallas-int8  K4, static-calibrated a8w8, not parity-grade (csrc/dyn8_mlp.cu,
-               mode 'static')
-  pallas-f32   K1 with f32 weights; not in the default list (the JAX tool
-               has no f32 variant), measured when named
+               serves (csrc/wgmma_layer_kmajor.cu, s8 layers)
+  pallas-int8  K4, static-calibrated a8w8, not parity-grade (csrc/dyn8_mlp.cu)
+  pallas-f32   K1 with f32 weights (csrc/wgmma_layer_kmajor.cu, 3xTF32
+               layers); not in the default list (the JAX tool has no f32
+               variant), measured when named
 
 Each variant times the full serving program of monoloco_tpu_torch.bench
 (K^-1 normalize -> MLP -> decode, `scan_iters` chained iterations, one
@@ -38,7 +38,7 @@ from ..ops import (fused_loco_forward, fused_loco_forward_w8, launches, pack_fol
 
 VARIANTS = ('xla-bf16', 'xla-int8', 'pallas-bf16', 'pallas-w8', 'pallas-dyn8', 'pallas-int8')
 EXTRA_VARIANTS = ('pallas-f32',)
-# The JAX tool's tile; the CUDA kernels take it and keep their 16-row tile.
+# The JAX tool's tile; the CUDA kernels take it and keep their own tiles.
 TILE = 512
 # The variants that are bench legs, by the bench's names for them.
 _BENCH_LEGS = {'xla-bf16': 'bf16', 'xla-int8': 'int8-xla', 'pallas-dyn8': 'int8',

@@ -222,7 +222,7 @@ def _entries(folded, calib):
 
 def test_every_entry_takes_the_jax_tile_keyword(folded, calib):
     """bench.py:97 and tools/bench_pallas_int8.py:63-70 pass tile=; the
-    Hopper kernels keep their 16-row tile, so tile never changes a result."""
+    Hopper kernels fix their own tiles, so tile never changes a result."""
     x = torch.from_numpy(_inputs(40, seed=4))
     for name, fn in _entries(folded, calib).items():
         base = fn(x)
@@ -245,7 +245,8 @@ def test_cpu_tensors_never_count_a_launch(folded, calib):
     assert ops.launches == before
     assert set(before) == {'dyn8_mlp', 'int8_static_mlp', 'w8_mlp',
                            'fused_mlp_bf16', 'fused_mlp_f32',
-                           'wgmma_layer_bf16', 'wgmma_layer_w8'}
+                           'wgmma_layer_bf16', 'wgmma_layer_w8',
+                           'wgmma_layer_f32', 'wgmma_layer_dyn8'}
 
 
 def test_entries_reject_unaligned_hidden_and_other_devices(folded, calib):

@@ -27,8 +27,14 @@ Weights come from a numpy seed with perturbed BN statistics. Tolerances:
    one f32 sum differs, at most 1% of the bf16 outputs differ at all
    (measured on the H100: 0.01-0.06%) and the f32 residual of 'add_relu'
    stays within 1e-5 (1 + |y|).
- - f32 (K1 with f32 weights): max abs 1e-4; the two sum 1024 f32 products
-   in different orders.
+ - f32 (K1 with f32 weights, 3xTF32 layers in csrc/wgmma_layer_kmajor.cu):
+   max abs 1e-4; the kernel's products drop a_small w_small (below 2^-22 of
+   a product) and the tensor cores sum in their own order.
+ - one 3xTF32 layer against `f32_layer_plain`: within 1e-5 (1 + |ref|), and
+   the residual of 'add_relu' likewise.
+ - one dyn8 layer (row quantization + s8 layer) against `quantize_rows_plain`
+   and `s8_layer_plain`: bit for bit, f32 and bf16 results and the residual;
+   the int32 sums are exact and the epilogue keeps the plain float order.
 A wrong kernel misses every one of these by orders of magnitude. A row never
 depends on the rows around it (bit for bit).
 """
@@ -151,21 +157,25 @@ def test_kernel_refuses_bad_inputs(cuda_device):
         fused_loco_forward_dyn8_auto(tuple(t.cpu() for t in packed), _inputs(8, 34, cuda_device))
 
 
-@pytest.mark.parametrize('dtype,hidden', [(torch.bfloat16, 1536), (torch.float32, 2048)])
-def test_k1_refuses_hidden_beyond_its_tile(cuda_device, dtype, hidden):
-    """With f32 weights the 16-row tile's activations must fit one block's
-    shared memory (hidden <= 1792). With bf16 weights the layer kernels keep
-    no activations on the SM, so hidden 1536 runs and is held to plain."""
+@pytest.mark.parametrize('kernel,hidden', [('k1_bf16', 1536), ('k1_f32', 2048),
+                                           ('dyn8', 2048), ('k4', 2048)])
+def test_only_k4_refuses_hidden_beyond_its_tile(cuda_device, kernel, hidden):
+    """K4's 16-row tile keeps its activations in shared memory, which one
+    block cannot hold at hidden 2048. The layer kernels keep none on the SM,
+    so K1-bf16, K1-f32 and dyn8 run there and are held to plain. (dyn8 at
+    hidden 2048: |acc| may pass 2^24, where its f32 conversion rounds half to
+    even on both sides.)"""
+    entry, plain, pack, _, rule = KERNELS[kernel]
     folded = _folded(34, 9, hidden, cuda_device)
-    packed = pack_folded_weights(folded, dtype)
-    if dtype == torch.float32:
+    packed = _packs(folded, 34, cuda_device)[pack]
+    if kernel == 'k4':
         with pytest.raises(ValueError, match='shared memory'):
-            fused_loco_forward(None, _inputs(8, 34, cuda_device), packed=packed)
+            entry(packed, _inputs(8, 34, cuda_device))
         return
     for m in (1, 77, 512):
         x = _inputs(m, 34, cuda_device, seed=m)
-        out = fused_loco_forward(None, x, packed=packed)
-        _check('bf16', out, fused_forward_plain(packed, x), folded_forward(folded, x))
+        out = entry(packed, x)
+        _check(rule, out, plain(packed, x), folded_forward(folded, x))
 
 
 def test_entries_refuse_hidden_off_the_128_grid(cuda_device):
@@ -208,4 +218,52 @@ def test_layer_kernel_matches_plain_layer(cuda_device, hidden, w8, epilogue):
         assert float(diff.max()) <= 5e-2
         assert float(diff.mean()) <= 5e-3 * float(ref.float().abs().mean())
         assert float((diff > 0).float().mean()) <= 0.01
+        assert bool(((y_k - y_p).abs() <= 1e-5 * (1 + y_p.abs())).all())
+
+
+def _layer_operands(hidden, seed, device):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.normal(size=(hidden, hidden)) / hidden ** 0.5)
+                         .astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32)).to(device)
+    return w, bias
+
+
+@pytest.mark.parametrize('epilogue', ['store', 'relu', 'add_relu'])
+@pytest.mark.parametrize('hidden', [128, 256, 1024])
+def test_dyn8_layer_kernel_is_its_plain_layer_bit_for_bit(cuda_device, hidden, epilogue):
+    w, bias = _layer_operands(hidden, hidden + 7, cuda_device)
+    wq, oscale = ops.quant_weight(w)
+    wq, oscale = wq.contiguous(), oscale.contiguous()
+    for m in (1, 77, 512):
+        act = _inputs(m, hidden, cuda_device, seed=m)
+        y0 = _inputs(m, hidden, cuda_device, seed=m + 1)
+        y_k, y_p = y0.clone(), y0.clone()
+        before = ops.launches['wgmma_layer_dyn8']
+        out, out_bf = ops.loco_layer_dyn8(act, wq, oscale, bias, epilogue, y_k)
+        torch.cuda.synchronize()
+        assert ops.launches['wgmma_layer_dyn8'] == before + 1
+        q, s_row = ops.quantize_rows_plain(act)
+        ref, ref_bf = ops.s8_layer_plain(q, s_row, ops.transpose_int8_plain(wq), oscale, bias,
+                                         epilogue, y_p)
+        assert out.dtype == torch.float32 and out_bf.dtype == torch.bfloat16
+        assert torch.equal(out, ref) and torch.equal(out_bf, ref_bf)
+        assert torch.equal(y_k, y_p)
+
+
+@pytest.mark.parametrize('epilogue', ['store', 'relu', 'add_relu'])
+@pytest.mark.parametrize('hidden', [128, 256, 1024])
+def test_tf32x3_layer_kernel_matches_plain_layer(cuda_device, hidden, epilogue):
+    w, bias = _layer_operands(hidden, hidden + 11, cuda_device)
+    for m in (1, 77, 512):
+        a = _inputs(m, hidden, cuda_device, seed=m)
+        y0 = _inputs(m, hidden, cuda_device, seed=m + 1)
+        y_k, y_p = y0.clone(), y0.clone()
+        before = ops.launches['wgmma_layer_f32']
+        out = ops.loco_layer_f32(a, w, bias, epilogue, y_k)
+        torch.cuda.synchronize()
+        assert ops.launches['wgmma_layer_f32'] == before + 1
+        ref = ops.f32_layer_plain(a, w, bias, epilogue, y_p)
+        assert out.dtype == torch.float32 and out.shape == (m, hidden)
+        assert bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
         assert bool(((y_k - y_p).abs() <= 1e-5 * (1 + y_p.abs())).all())
