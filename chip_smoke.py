@@ -17,17 +17,22 @@ to the CPU):
     fixture against the reference's out.monoloco.json.
  6. Times on the card at 131072 x 34: every kernel and its plain version,
     and the f32 and bf16 folded MLPs in `torch.matmul`; dyn8 also at 1024
-    rows, the predict dispatch; for the layered kernels (K1-bf16, K1-f32,
-    dyn8, K5), the device time of each CUDA kernel of one call
+    rows, the predict dispatch; for every kernel (all are layered: K1-bf16,
+    K1-f32, dyn8, K4, K5), the device time of each CUDA kernel of one call
     (torch.profiler, the per-call weight transposes included) and the peak
-    device memory of one call (their activation scratch).
+    device memory of one call (their activation scratch); and a layer-level
+    yardstick for the s8 layers of dyn8 and K4: `torch._int_mm` (s8 x s8 ->
+    s32, the one PyTorch call for a layer's product) at 131072 x 1024 x 1024
+    beside their per-launch device times.
  7. The K1 (bf16 and f32 weights), static a8w8 (K4) and w8a16 (K5) kernels
     against their plain versions at full width for m in M_ROWS, and at
     68 -> 10 for m = 77; row independence bit for bit; launch counters; and
     at 131072 x 1024 one H x H layer against its plain layer: of
     csrc/wgmma_layer.cu (bf16 and int8 weights, 'add_relu'), a 3xTF32 layer
-    of csrc/wgmma_layer_kmajor.cu ('add_relu', within 1e-5 (1 + |ref|)) and
-    a dyn8 layer (row quantization + s8 layer, each epilogue, bit for bit).
+    of csrc/wgmma_layer_kmajor.cu ('add_relu', within 1e-5 (1 + |ref|)), a
+    dyn8 layer (row quantization + s8 layer, each epilogue, bit for bit) and
+    a static a8w8 layer (each epilogue, bit for bit, the next layer's int8
+    input included).
  8. The serving bench and the ablation tools, as a user runs them:
     `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
     int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
@@ -37,7 +42,7 @@ to the CPU):
 The launch counts of the report are those of the main-path runs (phases 4
 and 8, each with every count set to 0 just before it); a count is one call
 of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16, 2S + 5
-for K5 and K1-f32, and 4S + 7 for dyn8. Each report entry has its time, its
+for K5, K1-f32 and K4, and 4S + 7 for dyn8. Each report entry has its time, its
 plain version's, the bound (the larger of its operations over the card's
 peak for their type and its bytes over 3.35 TB/s, from this run's shapes)
 and `library_ms`, the `torch.matmul` MLP of the same weight type where there
@@ -322,7 +327,7 @@ def _time_ms(fn, x):
     return start.elapsed_time(end)
 
 
-LAYERED = ('fused_mlp_bf16', 'fused_mlp_f32', 'dyn8_mlp', 'w8_mlp')
+LAYERED = ('fused_mlp_bf16', 'fused_mlp_f32', 'dyn8_mlp', 'int8_static_mlp', 'w8_mlp')
 
 
 def phase_times(kernels, folded, smi):
@@ -359,8 +364,10 @@ def phase_times(kernels, folded, smi):
             v = [_time_ms(lambda u: fn(packed, u), small) for _ in range(21)]
             print(f"dyn8_mlp {name} at {PREDICT_ROWS} rows: median {statistics.median(v):.4f} ms "
                   f"over {len(v)} runs (min {min(v):.4f}, max {max(v):.4f})")
-    for name in LAYERED:
-        launch_breakdown(name, *kernels[name][::2], x)
+    breakdowns = {name: launch_breakdown(name, *kernels[name][::2], x,
+                                         in_order=name in ('dyn8_mlp', 'int8_static_mlp'))
+                  for name in LAYERED}
+    int_mm_yardstick({name: breakdowns[name] for name in ('dyn8_mlp', 'int8_static_mlp')})
     for name in LAYERED:
         entry, _, packed = kernels[name]
         torch.cuda.synchronize()
@@ -375,8 +382,10 @@ def phase_times(kernels, folded, smi):
     return med
 
 
-def launch_breakdown(name, entry, packed, x):
-    """Device time of each CUDA kernel in one call, from torch.profiler."""
+def launch_breakdown(name, entry, packed, x, in_order=False):
+    """Device time of each CUDA kernel in one call, from torch.profiler:
+    printed by kernel (and with `in_order` launch by launch, in the order
+    they ran), and returned as [(ms, launches, kernel name)]."""
     from torch.profiler import ProfilerActivity, profile
     entry(packed, x)
     torch.cuda.synchronize()
@@ -388,11 +397,52 @@ def launch_breakdown(name, entry, packed, x):
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     if not rows:
         print(f"{name}: launch breakdown not measured (the profiler saw no device time)")
-        return
+        return rows
     print(f"{name}: device time of one call by kernel (torch.profiler), "
           f"{sum(r[0] for r in rows):.4f} ms in all")
     for ms, count, key in rows:
         print(f"  {ms:8.4f} ms  x{count:<3d} {key[:100]}")
+    if in_order:
+        launches = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3, e.name)
+                          for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"{name}: launch by launch, in order: "
+              + ", ".join(f"{ms:.4f}" for _, ms, _ in launches) + " ms")
+    return rows
+
+
+def int_mm_yardstick(breakdowns):
+    """torch._int_mm (s8 x s8 -> s32), the one PyTorch call that computes an
+    s8 layer's product, at TIMING_ROWS x HIDDEN x HIDDEN, beside the
+    per-launch device time of each kernel's s8 layers (`breakdowns`: name
+    -> launch_breakdown rows). It computes the product only, without the
+    epilogue the layers fuse."""
+    if not hasattr(torch, '_int_mm'):
+        print("s8 layer yardstick: torch._int_mm is missing in this torch; not measured")
+        return
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    q = torch.randint(-127, 128, (TIMING_ROWS, HIDDEN), dtype=torch.int8, device='cuda',
+                      generator=gen)
+    wt = torch.randint(-127, 128, (HIDDEN, HIDDEN), dtype=torch.int8, device='cuda',
+                       generator=gen)
+    ref = (q[:256].double() @ wt.double().T).to(torch.int32)
+    check(torch.equal(torch._int_mm(q[:256], wt.T), ref), "torch._int_mm is not q @ wt^T")
+    with torch.inference_mode():
+        for _ in range(3):
+            torch._int_mm(q, wt.T)
+        v = [_time_ms(lambda _: torch._int_mm(q, wt.T), None) for _ in range(21)]
+    n_ops = 2 * TIMING_ROWS * HIDDEN * HIDDEN
+    nbytes = TIMING_ROWS * HIDDEN * (1 + 4) + HIDDEN * HIDDEN
+    bound = max(n_ops / PEAK_OPS['int8'], nbytes / PEAK_BYTES) * 1e3
+    print(f"s8 layer yardstick at {TIMING_ROWS} x {HIDDEN} x {HIDDEN}: torch._int_mm median "
+          f"{statistics.median(v):.4f} ms over {len(v)} runs (min {min(v):.4f}, max "
+          f"{max(v):.4f}); its bound {bound:.4f} ms (s32 out)")
+    for name, rows in breakdowns.items():
+        layers = [(ms, n) for ms, n, key in rows if 'layer_kernel' in key and 'S8' in key]
+        if not layers:
+            print(f"  {name} s8 layer: not measured (no profiler rows)")
+            continue
+        ms, n = sum(r[0] for r in layers), sum(r[1] for r in layers)
+        print(f"  {name} s8 layer: {ms / n:.4f} ms per launch ({n} launches, {ms:.4f} ms)")
 
 
 def bound(name, packed, m):
@@ -477,10 +527,14 @@ def phase_layers(kernels):
     """One H x H layer of each layer kernel at 131072 x 1024 against its
     plain layer: csrc/wgmma_layer.cu per weight type and a 3xTF32 layer of
     csrc/wgmma_layer_kmajor.cu, each 'add_relu' (the epilogue that reads and
-    writes the most); and a dyn8 layer (row quantization + s8 layer) per
-    epilogue, bit for bit against `_dynamic_layer` and its epilogue."""
+    writes the most); a dyn8 layer (row quantization + s8 layer) per
+    epilogue, bit for bit against `_dynamic_layer` and its epilogue; and a
+    static a8w8 layer per epilogue, bit for bit against
+    `static_s8_layer_plain`, the next layer's int8 input included."""
     from monoloco_tpu_torch.ops import (f32_layer_plain, launches, layer_plain, loco_layer,
-                                        loco_layer_dyn8, loco_layer_f32)
+                                        loco_layer_dyn8, loco_layer_f32, loco_layer_static,
+                                        quantize_static_plain, static_s8_layer_plain,
+                                        transpose_int8_plain)
     from monoloco_tpu_torch.ops.fused_mlp import _dynamic_layer
     m = TIMING_ROWS
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
@@ -539,6 +593,29 @@ def phase_layers(kernels):
         check(n_off == 0 and n_off_bf == 0, f"wgmma_layer_dyn8 {epilogue} is not its plain layer")
         del out, out_bf, y_k
 
+    a8 = kernels['int8_static_mlp'][2]
+    wq, inv_in, oscale, bias = a8[2][1], a8[3], a8[4][1], a8[5][1]
+    q = quantize_static_plain(a32, inv_in[1])
+    wt = transpose_int8_plain(wq)
+    for epilogue in ('store', 'relu', 'add_relu'):
+        y_k, y_p = y0.clone(), y0.clone()
+        before = launches['wgmma_layer_static']
+        out, out_bf, q_next = loco_layer_static(q, wq, oscale, bias, epilogue, inv_in[2:3], y_k)
+        torch.cuda.synchronize()
+        check(launches['wgmma_layer_static'] == before + 1,
+              "wgmma_layer_static: counter did not rise")
+        ref, ref_bf, ref_q = static_s8_layer_plain(q, wt, oscale, bias, epilogue, inv_in[2:3], y_p)
+        n_off = int((out != ref).sum())
+        n_off_bf = int((out_bf != ref_bf).sum())
+        n_off_q = int((q_next != ref_q).sum())
+        clipped = float((ref_q.abs() == 127).float().mean())
+        print(f"wgmma_layer_static m={m} x {HIDDEN} {epilogue}: f32 outputs off {n_off}, bf16 "
+              f"off {n_off_bf}, next int8 input off {n_off_q} (bit for bit: 0; {clipped:.4f} "
+              f"of it clipped)", flush=True)
+        check(n_off == 0 and n_off_bf == 0 and n_off_q == 0 and torch.equal(y_k, y_p),
+              f"wgmma_layer_static {epilogue} is not its plain layer")
+        del out, out_bf, q_next, ref, ref_bf, ref_q, y_k, y_p
+
 
 def phase_bench():
     """The bench and both tools, each JSON line checked; returns the launch
@@ -591,7 +668,7 @@ REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
             'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
             'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
 SOURCES = {'dyn8_mlp': 'wgmma_layer_kmajor.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
-           'fused_mlp_f32': 'wgmma_layer_kmajor.cu', 'int8_static_mlp': 'dyn8_mlp.cu',
+           'fused_mlp_f32': 'wgmma_layer_kmajor.cu', 'int8_static_mlp': 'wgmma_layer_kmajor.cu',
            'w8_mlp': 'wgmma_layer.cu'}
 # The type of each kernel's products and how many passes of them it makes
 # (its bound), and the torch.matmul MLP that computes the same function

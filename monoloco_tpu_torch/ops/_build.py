@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('dyn8_mlp.cu', 'wgmma_layer.cu', 'wgmma_layer_kmajor.cu')
+_SOURCES = ('wgmma_layer.cu', 'wgmma_layer_kmajor.cu')
 _HEADERS = ('mlp_common.cuh', 'hopper_common.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -45,15 +45,16 @@ def _nvcc():
 def _declare(lib):
     ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     signatures = {
-        'int8w_mlp_forward': [ptr] * 12 + [i32] * 5 + [ptr],
         'wgmma_layer_forward': [ptr] * 6 + [i32] * 3 + [ptr],
         'widen_int8_forward': [ptr, ptr, size, ptr],
         'loco_input_forward': [ptr] * 5 + [i32] * 3 + [ptr],
+        'loco_input_int8_forward': [ptr] * 6 + [i32] * 3 + [ptr],
         'loco_input_f32_forward': [ptr] * 6 + [i32] * 3 + [ptr],
         'loco_heads_forward': [ptr] * 7 + [i32] * 3 + [ptr],
         'loco_heads_f32_forward': [ptr] * 7 + [i32] * 3 + [ptr],
         'tf32x3_layer_forward': [ptr] * 8 + [i32] * 3 + [ptr],
         's8_layer_forward': [ptr] * 7 + [i32] * 3 + [ptr],
+        's8_static_layer_forward': [ptr] * 8 + [i32] * 3 + [ptr],
         'quantize_rows_forward': [ptr] * 3 + [i32] * 2 + [ptr],
         'transpose_int8_forward': [ptr] * 2 + [i32] * 2 + [ptr],
         'transpose_split_tf32_forward': [ptr] * 3 + [i32] * 2 + [ptr],
@@ -62,8 +63,6 @@ def _declare(lib):
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, i32
-    lib.int8w_mlp_smem_bytes.argtypes = [i32, i32]
-    lib.int8w_mlp_smem_bytes.restype = size
     lib.mlp_error_string.argtypes = [i32]
     lib.mlp_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,9 @@
 //      w8a16: bf16 activations times int8 weights (exact in bf16), f32 sums,
 //      the per-column scale on the output.
 // The input projection and heads kernels here serve K1 with f32 weights too
-// (f32 flavours) and dyn8 (as they are); their H x H layers, whose operands
-// wgmma reads K-major only, are wgmma_layer_kmajor.cu; K4 is dyn8_mlp.cu.
+// (f32 flavours), dyn8 (as they are) and K4 (the input projection also
+// writing the first layer's int8 input); their H x H layers, whose operands
+// wgmma reads K-major only, are wgmma_layer_kmajor.cu.
 //
 // What bounds it. At hidden 1024 the eight H x H layers are 16.8 MFLOP a
 // row: 2.2 TFLOP at 131072 rows, 2.2 ms at the bf16 peak (989 TFLOP/s),
@@ -292,20 +293,30 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// y = relu(act_in<T>(x) @ w0 + b0) (f32, k in order, as mlp::input_layer)
-// for kInRows rows a block, w0 of type T; a thread owns columns 2 j and
-// 2 j + 1. With bf16 weights out0 gets bf16(y); with f32 weights out0 and
-// out1 get y split into tf32 parts (mlp::tf32_split), the first operand of
-// the 3xTF32 layers. The inputs sit in shared memory as (in_dim, kInRows),
-// so one 16-byte broadcast feeds four rows of both columns.
-template <typename T>
+// What the input projection writes besides y (f32): the first H x H layer's
+// input.
+enum class InOut {
+  kBf16,        // bf16(y): K1-bf16, K5, dyn8 (whose layers quantize y)
+  kTf32Parts,   // y's tf32 parts in out0, out1: K1-f32's 3xTF32 layers
+  kInt8,        // clip(rint(y * inv[0]), +-127): K4's static layers
+};
+
+// y = relu(act_in<T>(x) @ w0 + b0) (f32, k in order) for kInRows rows a
+// block, w0 of type T; a thread owns columns 2 j and 2 j + 1; out0 (and
+// out1) get y's second form, kOut. The inputs sit in shared memory as
+// (in_dim, kInRows), so one 16-byte broadcast feeds four rows of both
+// columns.
+template <typename T, InOut kOut>
 __global__ void __launch_bounds__(256)
 input_kernel(const float* __restrict__ x, const T* __restrict__ w0,
              const float* __restrict__ b0, float* __restrict__ y, void* __restrict__ out0,
-             void* __restrict__ out1, int m, int in_dim, int hidden) {
+             void* __restrict__ out1, const float* __restrict__ inv, int m, int in_dim,
+             int hidden) {
   extern __shared__ float4 xs4[];   // (in_dim, kInRows) f32
   float* xs = reinterpret_cast<float*>(xs4);
   const int row0 = blockIdx.x * kInRows;
+  float inv_q = 0.f;
+  if constexpr (kOut == InOut::kInt8) inv_q = __ldg(inv);
   for (int i = threadIdx.x; i < kInRows * in_dim; i += blockDim.x) {
     const int r = i / in_dim;
     const int k = i % in_dim;
@@ -338,9 +349,11 @@ input_kernel(const float* __restrict__ x, const T* __restrict__ w0,
       const float v1 = fmaxf(__fadd_rn(acc[r][1], b.y), 0.f);
       const size_t off = static_cast<size_t>(row0 + r) * hidden + j;
       *reinterpret_cast<float2*>(y + off) = make_float2(v0, v1);
-      if constexpr (sizeof(T) == 4)
+      if constexpr (kOut == InOut::kTf32Parts)
         mlp::store_tf32_split2(static_cast<float*>(out0) + off, static_cast<float*>(out1) + off,
                                v0, v1);
+      else if constexpr (kOut == InOut::kInt8)
+        mlp::store_s8x2(static_cast<int8_t*>(out0) + off, v0, v1, inv_q);
       else
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out0) + off) =
             __floats2bfloat162_rn(v0, v1);
@@ -401,13 +414,14 @@ heads_kernel(const T* __restrict__ y2, const T* __restrict__ y3, const T* __rest
   }
 }
 
-template <typename T>
+template <typename T, InOut kOut>
 int launch_input(const float* x, const void* w0, const float* b0, float* y, void* out0,
-                 void* out1, int m, int in_dim, int hidden, cudaStream_t stream) {
+                 void* out1, const float* inv, int m, int in_dim, int hidden,
+                 cudaStream_t stream) {
   if (m == 0) return 0;
   const size_t smem = static_cast<size_t>(kInRows) * in_dim * sizeof(float);
-  input_kernel<T><<<(m + kInRows - 1) / kInRows, 256, smem, stream>>>(
-      x, static_cast<const T*>(w0), b0, y, out0, out1, m, in_dim, hidden);
+  input_kernel<T, kOut><<<(m + kInRows - 1) / kInRows, 256, smem, stream>>>(
+      x, static_cast<const T*>(w0), b0, y, out0, out1, inv, m, in_dim, hidden);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,8 +506,18 @@ int widen_int8_forward(const void* src, void* dst, size_t n, void* stream) {
 // y (m, H) f32 = relu(bf16(x) @ w0 + b0) and ybf = bf16(y), w0 (in, H) bf16.
 int loco_input_forward(const float* x, const void* w0, const float* b0, float* y, void* ybf,
                        int m, int in_dim, int hidden, void* stream) {
-  return launch_input<__nv_bfloat16>(x, w0, b0, y, ybf, nullptr, m, in_dim, hidden,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_input<__nv_bfloat16, InOut::kBf16>(x, w0, b0, y, ybf, nullptr, nullptr, m,
+                                                   in_dim, hidden,
+                                                   static_cast<cudaStream_t>(stream));
+}
+
+// y (m, H) f32 as loco_input_forward, and q (m, H) int8 = clip(rint(y *
+// inv[0]), +-127), the first static a8w8 layer's input; inv is a device
+// pointer.
+int loco_input_int8_forward(const float* x, const void* w0, const float* b0, float* y, void* q,
+                            const float* inv, int m, int in_dim, int hidden, void* stream) {
+  return launch_input<__nv_bfloat16, InOut::kInt8>(x, w0, b0, y, q, nullptr, inv, m, in_dim,
+                                                   hidden, static_cast<cudaStream_t>(stream));
 }
 
 // y (m, H) f32 = relu(x @ w0 + b0), w0 (in, H) f32, and y's tf32 parts
@@ -501,8 +525,8 @@ int loco_input_forward(const float* x, const void* w0, const float* b0, float* y
 int loco_input_f32_forward(const float* x, const float* w0, const float* b0, float* y,
                            float* big, float* small, int m, int in_dim, int hidden,
                            void* stream) {
-  return launch_input<float>(x, w0, b0, y, big, small, m, in_dim, hidden,
-                             static_cast<cudaStream_t>(stream));
+  return launch_input<float, InOut::kTf32Parts>(x, w0, b0, y, big, small, nullptr, m, in_dim,
+                                                hidden, static_cast<cudaStream_t>(stream));
 }
 
 // out (m, out_dim) f32 = [y3 @ wfin + bfin, y2 @ waux + baux], y2 and y3
@@ -520,6 +544,13 @@ int loco_heads_f32_forward(const float* y2, const float* y3, const float* waux,
                            int m, int hidden, int out_dim, void* stream) {
   return launch_heads<float>(y2, y3, waux, baux, wfin, bfin, out, m, hidden, out_dim,
                              static_cast<cudaStream_t>(stream));
+}
+
+// What an error code of this library's C functions means: a cudaError_t,
+// or >= 1000 for a TMA descriptor that failed to encode.
+const char* mlp_error_string(int code) {
+  if (code >= kTmaError) return "cuTensorMapEncodeTiled failed (CUresult = code - 1000)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -3,13 +3,15 @@
 // layer with the layer's epilogue fused, and the small launches around it.
 //
 // With the input projection and heads kernels of wgmma_layer.cu, replaces
-// two Pallas TPU kernels of monoloco_tpu/ops/fused_mlp.py:
+// three Pallas TPU kernels of monoloco_tpu/ops/fused_mlp.py:
 //   K1 `_kernel` (:63, through `_fused_call`) with f32 weights: f32 products
 //      and sums, here as 3xTF32 (kind Tf32x3);
 //   K2/K3 `_kernel_int8` act_mode 'dynamic' (:367, through `_fused_call_int8`)
 //      and `_kernel_int8_resident` (:474): per-row dynamic a8w8, dyn8 (kind
-//      S8). On the TPU the two differ in where the int8 stack lives; here
-//      one forward serves both.
+//      S8<BN>). On the TPU the two differ in where the int8 stack lives;
+//      here one forward serves both;
+//   K4 `_kernel_int8` act_mode 'static' (:367, through `_fused_call_int8`):
+//      a8w8 with a calibrated per-tensor scale per layer (kind S8<BN, true>).
 //
 // The layer kernel is that of wgmma_layer.cu (one persistent block of 384
 // threads per SM over 128 x BN output tiles; one producer thread keeps TMA
@@ -50,12 +52,28 @@
 // quantization is its own launch; fusing it into the previous layer's
 // epilogue (a second pass over the row) is a later step.
 //
+// Static S8 (K4). The next layer's scale is a calibrated scalar, inv_in[i +
+// 1], known before the layer runs, so no second pass is needed: the
+// epilogue, in the float order of `_int8_mm` 'static' (fused_mlp.py:335-343),
+//   v = f32(acc) * oscale + b;  relu / store / add_relu as above,
+// writes the next layer's int8 input itself,
+//   q_next = clip(rint(o * inv_next), +-127),  o the value it just made
+// (for add_relu the f32 y after the add), with inv_next read on the card
+// (no host sync per layer); and f32 (the residual y only) and/or bf16 (the
+// heads) where they are read. No quantization launch, no f32 traffic but
+// the residual: a call is 2S + 5 launches. A thread holds two neighbouring
+// columns of a row, so the four lanes of a row trade their 2-byte pairs
+// by shuffles and each stores 8 contiguous bytes (store_q_rows): measured
+// on the H100, 2-byte stores from each lane made the layers 19% slower.
+//
 // What bounds them, at hidden 1024, 131072 rows, 3 stages: the eight layers
 // are 2.2 TFLOP a call. 3xTF32 does it three times at 495 TFLOP/s (13.3 ms);
 // s8 once at 1979 TOP/s (1.1 ms), and its activations then weigh more: each
-// layer reads 0.5 GB of f32 to quantize and writes 0.5 GB of f32 (3.35 TB/s).
-// Each weight byte is read from L2 once per 128 rows, not once per 16 as in
-// the kernels these replace.
+// dyn8 layer reads 0.5 GB of f32 to quantize and writes 0.5 GB of f32 (3.35
+// TB/s); a static layer reads 0.13 GB of int8 and writes 0.13 GB of int8,
+// plus 1 GB of f32 for the residual of add_relu. Each weight byte is read
+// from L2 once per 128 rows, not once per 16 as in the kernels these
+// replace.
 //
 // Rows: TMA fills rows past m with zeros and the epilogue stores rows < m
 // only. The tile shape and the k order never depend on m and nothing splits
@@ -84,15 +102,20 @@ struct Tf32x3 {
   static constexpr int kBN = 128;
   static constexpr int kParts = 2;
   static constexpr int kElemBytes = 4;
+  static constexpr bool kStatic = false;
   using Acc = float;
 };
 
-// s8 x s8 -> s32, one part, one accumulator.
-template <int BN>
+// s8 x s8 -> s32, one part, one accumulator. The scale mode is a template
+// parameter, so that neither mode's epilogue moves when the other changes:
+// kStatic = false is dyn8 (row scales), true is K4 (no row scale, the next
+// layer's int8 input written by the epilogue).
+template <int BN, bool Static = false>
 struct S8 {
   static constexpr int kBN = BN;
   static constexpr int kParts = 1;
   static constexpr int kElemBytes = 1;
+  static constexpr bool kStatic = Static;
   using Acc = int;
 };
 
@@ -113,12 +136,14 @@ struct Maps {
 struct Params {
   const float* bias;
   const float* oscale;      // S8: the weights' column scales
-  const float* row_scale;   // S8: the activation rows' scales
+  const float* row_scale;   // dynamic S8: the activation rows' scales
   float* out;               // f32 result or null; add_relu: the residual y, in place
   __nv_bfloat16* out_bf;    // S8: bf16 result or null
   float* big;               // Tf32x3: the result's tf32 parts, or null
   float* small;
   int epilogue;
+  const float* inv_next;    // static S8: the next layer's inv_in (one value, on the card)
+  int8_t* q_next;           // static S8: the next layer's int8 input, or null
 };
 
 // One 32-byte k-step of a k-tile. Tf32x3: d[1] sums the cross products over
@@ -140,6 +165,43 @@ __device__ __forceinline__ void mma_step(typename K::Acc (&d)[K::kParts][K::kBN 
     wgmma_m64n256k32_s8(d[0], sw128_desc(a0, 16, 1024), sw128_desc(b0, 16, 1024), 1);
   } else {
     wgmma_m64n128k32_s8(d[0], sw128_desc(a0, 16, 1024), sw128_desc(b0, 16, 1024), 1);
+  }
+}
+
+// The static epilogue's q_next store for a chunk of 8 column groups. Lane
+// (row r, t = lane % 4) holds qp[k][h], the 2 bytes of row r0 + 8 h at
+// columns col0 + 8 k + 2 t. Three shuffles among the four lanes of a row
+// hand each lane all 8 bytes of group k = t (and of k = 4 + t), which it
+// stores as one word: a warp's store then covers 32 contiguous bytes of each
+// of its 8 rows, whole 32-byte sectors, where each lane's own 2-byte stores
+// write a quarter of a sector per store.
+__device__ __forceinline__ void store_q_rows(int8_t* q, const uint32_t (&qp)[8][2], int lane,
+                                             int r0, int col0, int m, int hidden) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int g = 0; g < 8; g += 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned long long word = 0;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        // Round rr: each lane sends its pair of group (t + rr) % 4, and so
+        // receives, from lane s = (t - rr) % 4, s's pair of group t: the
+        // bytes 2 s and 2 s + 1 of the word.
+        const int k = (t + rr) & 3;
+        const uint32_t mine = k == 0   ? qp[g][h]
+                              : k == 1 ? qp[g + 1][h]
+                              : k == 2 ? qp[g + 2][h]
+                                       : qp[g + 3][h];
+        const int s = (t - rr) & 3;
+        const uint32_t got = __shfl_sync(0xffffffffu, mine, (lane & ~3) | s);
+        word |= static_cast<unsigned long long>(got) << (16 * s);
+      }
+      const int r = r0 + 8 * h;
+      if (r < m)
+        *reinterpret_cast<unsigned long long*>(q + static_cast<size_t>(r) * hidden + col0 +
+                                               8 * (g + t)) = word;
+    }
   }
 }
 
@@ -254,15 +316,20 @@ layer_kernel(const __grid_constant__ Maps maps, const Params p, int m, int hidde
       const int c0 = n0 + 2 * (lane % 4);
       const bool add = p.epilogue == mlp::kAddRelu;
       float rs[2] = {0.f, 0.f};
-      if constexpr (K::kParts == 1) {
+      if constexpr (K::kParts == 1 && !K::kStatic) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (r0 + 8 * h < m) rs[h] = p.row_scale[r0 + 8 * h];
+      }
+      float inv_next = 0.f;
+      if constexpr (K::kStatic) {
+        if (p.q_next != nullptr) inv_next = __ldg(p.inv_next);
       }
       constexpr int kChunk = 8;
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
         float2 b[kChunk], sc[kChunk], old[kChunk][2];
+        uint32_t qp[K::kStatic ? kChunk : 1][2] = {};   // static: q_next pairs, 2 bytes each
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) {
           const int col = c0 + 8 * (j0 + j);
@@ -288,6 +355,9 @@ layer_kernel(const __grid_constant__ Maps maps, const Params p, int m, int hidde
             if constexpr (K::kParts == 2) {
               v0 = __fadd_rn(__fadd_rn(big_sum[i], d[1][i]), b[j].x);
               v1 = __fadd_rn(__fadd_rn(big_sum[i + 1], d[1][i + 1]), b[j].y);
+            } else if constexpr (K::kStatic) {
+              v0 = __fadd_rn(__fmul_rn(__int2float_rn(d[0][i]), sc[j].x), b[j].x);
+              v1 = __fadd_rn(__fmul_rn(__int2float_rn(d[0][i + 1]), sc[j].y), b[j].y);
             } else {
               v0 = __fadd_rn(__fmul_rn(__int2float_rn(d[0][i]), __fmul_rn(rs[h], sc[j].x)),
                              b[j].x);
@@ -308,8 +378,14 @@ layer_kernel(const __grid_constant__ Maps maps, const Params p, int m, int hidde
             } else {
               if (p.out_bf != nullptr)
                 *reinterpret_cast<__nv_bfloat162*>(p.out_bf + off) = __floats2bfloat162_rn(v0, v1);
+              if constexpr (K::kStatic) {
+                if (p.q_next != nullptr) qp[j][h] = mlp::pack_s8x2(v0, v1, inv_next);
+              }
             }
           }
+        }
+        if constexpr (K::kStatic) {
+          if (p.q_next != nullptr) store_q_rows(p.q_next, qp, lane, r0, n0 + 8 * j0, m, hidden);
         }
       }
     }
@@ -324,8 +400,7 @@ layer_kernel(const __grid_constant__ Maps maps, const Params p, int m, int hidde
 // read from memory once and all its loads are in flight together; kVec = 0
 // reads it twice.
 __device__ __forceinline__ uint32_t quant_byte(float v, float inv, int shift) {
-  const int t = min(max(__float2int_rn(__fmul_rn(v, inv)), -127), 127);
-  return (static_cast<uint32_t>(t) & 0xFFu) << shift;
+  return (static_cast<uint32_t>(mlp::quant_s8(v, inv)) & 0xFFu) << shift;
 }
 
 __device__ __forceinline__ float amax4(float amax, float4 v) {
@@ -463,7 +538,7 @@ int tf32x3_layer_forward(const float* a_big, const float* a_small, const float* 
   if (m == 0) return 0;
   const void* a[2] = {a_big, a_small};
   const void* wt[2] = {wt_big, wt_small};
-  const Params p = {bias, nullptr, nullptr, out, nullptr, big, small, epilogue};
+  const Params p = {bias, nullptr, nullptr, out, nullptr, big, small, epilogue, nullptr, nullptr};
   return launch_layer<Tf32x3>(a, wt, p, m, hidden, static_cast<cudaStream_t>(stream));
 }
 
@@ -478,10 +553,29 @@ int s8_layer_forward(const int8_t* q, const float* row_scale, const int8_t* wt,
   const void* a[2] = {q, q};
   const void* w[2] = {wt, wt};
   const Params p = {bias, oscale, row_scale, out, static_cast<__nv_bfloat16*>(out_bf),
-                    nullptr, nullptr, epilogue};
+                    nullptr, nullptr, epilogue, nullptr, nullptr};
   auto s = static_cast<cudaStream_t>(stream);
   return hidden % 256 == 0 ? launch_layer<S8<256>>(a, w, p, m, hidden, s)
                            : launch_layer<S8<128>>(a, w, p, m, hidden, s);
+}
+
+// One static a8w8 (K4) layer on `stream`: v = f32(q @ Wq) * oscale + bias
+// from q (m, H) int8 and the transposed int8 weights wt (H_out, H_in), then
+// the epilogue; out (m, H) f32 unless null (add_relu: the residual y, in
+// place), out_bf (m, H) bf16 unless null, and q_next (m, H) int8 unless
+// null, the result quantized with the scalar *inv_next (a device pointer).
+// As tf32x3_layer_forward otherwise.
+int s8_static_layer_forward(const int8_t* q, const int8_t* wt, const float* oscale,
+                            const float* bias, const float* inv_next, float* out, void* out_bf,
+                            int8_t* q_next, int m, int hidden, int epilogue, void* stream) {
+  if (m == 0) return 0;
+  const void* a[2] = {q, q};
+  const void* w[2] = {wt, wt};
+  const Params p = {bias, oscale, nullptr, out, static_cast<__nv_bfloat16*>(out_bf),
+                    nullptr, nullptr, epilogue, inv_next, q_next};
+  auto s = static_cast<cudaStream_t>(stream);
+  return hidden % 256 == 0 ? launch_layer<S8<256, true>>(a, w, p, m, hidden, s)
+                           : launch_layer<S8<128, true>>(a, w, p, m, hidden, s);
 }
 
 // q (m, H) int8 and row_scale (m,) f32 from act (m, H) f32, per row.

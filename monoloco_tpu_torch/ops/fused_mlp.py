@@ -1,7 +1,7 @@
 """The fused folded-MLP kernels and their plain versions.
 
 Counterpart of `monoloco_tpu/ops/fused_mlp.py`, whose five Pallas kernels
-become three hand-written CUDA sources for Hopper:
+become two hand-written CUDA sources for Hopper:
 
 - `csrc/wgmma_layer.cu` replaces K1 `_kernel` with bf16 weights
   (`fused_loco_forward` on a `pack_folded_weights` bf16 pack) and
@@ -13,19 +13,20 @@ become three hand-written CUDA sources for Hopper:
   versions of those launches, and `layered_forward_plain` chains them.
 - `csrc/wgmma_layer_kmajor.cu` (with the input projection and heads of
   `wgmma_layer.cu`) replaces K1 with f32 weights (`fused_loco_forward` on an
-  f32 pack) and `_kernel_int8` act_mode 'dynamic' with
-  `_kernel_int8_resident` (K2/K3, dyn8: `fused_loco_forward_dyn8` and its
-  `_resident` and `_auto` names) in the same layered design, with operands
-  wgmma reads K-major: K1-f32 as 3xTF32 layers on the tf32 parts of the
-  activations and of the transposed stack (2S + 5 launches a call), dyn8 as
-  a row quantization and an s8 layer per H x H layer (4S + 7 launches).
-  `split_tf32_plain`, `transpose_split_plain`, `f32_layer_plain`,
-  `transpose_int8_plain`, `quantize_rows_plain` and `s8_layer_plain` are
-  their plain launches; `layered_f32_forward_plain` and
-  `layered_dyn8_forward_plain` chain them.
-- `csrc/dyn8_mlp.cu` replaces `_kernel_int8` act_mode 'static' (K4,
-  `fused_loco_forward_int8`, packed by `pack_folded_weights_int8` from a
-  calibration batch) in one launch a call, a 16-row tile in shared memory.
+  f32 pack), `_kernel_int8` act_mode 'dynamic' with `_kernel_int8_resident`
+  (K2/K3, dyn8: `fused_loco_forward_dyn8` and its `_resident` and `_auto`
+  names) and `_kernel_int8` act_mode 'static' (K4, `fused_loco_forward_int8`,
+  packed by `pack_folded_weights_int8` from a calibration batch) in the same
+  layered design, with operands wgmma reads K-major: K1-f32 as 3xTF32 layers
+  on the tf32 parts of the activations and of the transposed stack (2S + 5
+  launches a call), dyn8 as a row quantization and an s8 layer per H x H
+  layer (4S + 7 launches), K4 as an s8 layer per H x H layer whose epilogue
+  writes the next layer's int8 input with its calibrated scale (2S + 5
+  launches). `split_tf32_plain`, `transpose_split_plain`, `f32_layer_plain`,
+  `transpose_int8_plain`, `quantize_rows_plain`, `s8_layer_plain`,
+  `static_input_plain` and `static_s8_layer_plain` are their plain
+  launches; `layered_f32_forward_plain`, `layered_dyn8_forward_plain` and
+  `layered_static_forward_plain` chain them.
 dyn8 and K5 take the calibration-free pack `pack_folded_weights_w8`: H x H
 layers as int8 with per-output-column scales, the input projection and heads
 as bf16.
@@ -39,7 +40,8 @@ not depend on the order of a sum, and a row never depends on the batch
 around it. `launches` counts the calls that ran on a card, per kernel: one
 per forward call, whatever number of CUDA launches it makes, and one per
 call of a single-layer entry (`loco_layer`, `loco_layer_f32`,
-`loco_layer_dyn8`), so a run can show that it went through the kernels.
+`loco_layer_dyn8`, `loco_layer_static`), so a run can show that it went
+through the kernels.
 
 The JAX entries take `tile` (rows per grid step, 512 by default); the
 wrappers accept it and ignore it, since the Hopper kernels fix their own
@@ -57,7 +59,7 @@ from .quant import quant_weight, quantize_folded
 launches = {'dyn8_mlp': 0, 'int8_static_mlp': 0, 'w8_mlp': 0,
             'fused_mlp_bf16': 0, 'fused_mlp_f32': 0,
             'wgmma_layer_bf16': 0, 'wgmma_layer_w8': 0,
-            'wgmma_layer_f32': 0, 'wgmma_layer_dyn8': 0}
+            'wgmma_layer_f32': 0, 'wgmma_layer_dyn8': 0, 'wgmma_layer_static': 0}
 
 # The JAX package's VMEM budget for its resident flavour (int8: one byte per
 # element). On Hopper both flavours are one kernel and the stack is read
@@ -65,8 +67,6 @@ launches = {'dyn8_mlp': 0, 'int8_static_mlp': 0, 'w8_mlp': 0,
 # its JAX meaning.
 _RESIDENT_MAX_STACK_BYTES = 16 * 1024 * 1024
 
-_TILE_ROWS = 16          # kTileRows in csrc/mlp_common.cuh (K4)
-_MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90
 _MAX_HEAD_OUTPUTS = 16    # kMaxOut in csrc/wgmma_layer.cu
 
 # Epilogue of an H x H layer -> its code (mlp::Epilogue, csrc/mlp_common.cuh).
@@ -211,10 +211,17 @@ def _dynamic_layer(act, wq, oscale, bias):
     return acc * (s * oscale[None, :]) + bias[None, :]
 
 
+def quantize_static_plain(act, inv):
+    """K4's quantization of f32 act with a calibrated per-tensor inv (one
+    f32 value), in the float order of `_int8_mm` 'static' (`:338`): q =
+    clip(rint(act * inv), +-127) as int8, rint half to even."""
+    return torch.clamp(torch.round(act * inv), -127, 127).to(torch.int8)
+
+
 def _static_layer(act, wq, inv_in, oscale, bias):
     """One static a8w8 H x H layer, in the float order of `_int8_mm`
     'static' (`:335-343`): no row scale."""
-    q = torch.clamp(torch.round(act * inv_in), -127, 127)
+    q = quantize_static_plain(act, inv_in)
     acc = (q.double() @ wq.double()).float()
     return acc * oscale[None, :] + bias[None, :]
 
@@ -409,6 +416,50 @@ def layered_dyn8_forward_plain(packed, x):
     return heads_plain(y2_bf, y3_bf, waux, baux, wfin, bfin)
 
 
+# --- the layered forward of K4, launch by launch ---------------------------
+
+def static_input_plain(x, w0, b0, inv0):
+    """K4's input projection: y = relu(bf16(x) @ w0 + b0) in f32, and q0 =
+    `quantize_static_plain(y, inv0)`, the first layer's int8 input."""
+    y, _ = input_projection_plain(x, w0, b0)
+    return y, quantize_static_plain(y, inv0)
+
+
+def static_s8_layer_plain(q, wt, oscale, bias, epilogue, inv_next=None, y=None):
+    """One static a8w8 (K4) H x H layer on its int8 input q: v = f32(q @
+    wt^T) * oscale + bias, wt the transposed int8 weights (H_out, H_in); the
+    epilogue as `f32_layer_plain`. Returns (f32 result, its bf16 rounding,
+    q_next), q_next = `quantize_static_plain(result, inv_next)`, the next
+    layer's int8 input, or None without inv_next; for 'add_relu' the f32
+    result is y, updated in place."""
+    acc = (q.double() @ wt.double().T).float()
+    out = _epilogue(acc * oscale[None, :] + bias[None, :], epilogue, y)
+    q_next = None if inv_next is None else quantize_static_plain(out, inv_next)
+    return out, out.to(torch.bfloat16), q_next
+
+
+def layered_static_forward_plain(packed, x):
+    """The forward of K4 as its kernels launch it (the transposed stack, the
+    input projection with the first quantization, one s8 layer per H x H
+    layer, each quantizing its result for the next, the heads), one plain
+    function per launch; bit for bit `int8_static_forward_plain`."""
+    (w0, b0, wq, inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
+    wt = transpose_int8_plain(wq)
+    n_mm = wq.shape[0]
+    y, q = static_input_plain(x, w0, b0, inv_in[0])
+
+    def layer(q, i, epilogue, res=None):
+        inv_next = inv_in[i + 1] if i + 1 < n_mm else None
+        return static_s8_layer_plain(q, wt[i], oscale[i], bstack[i], epilogue, inv_next, res)
+
+    for i in range(0, n_mm - 2, 2):
+        _, _, q = layer(q, i, 'relu')
+        _, _, q = layer(q, i + 1, 'add_relu', y)
+    _, y2_bf, q = layer(q, n_mm - 2, 'store')
+    _, y3_bf, _ = layer(q, n_mm - 1, 'relu')
+    return heads_plain(y2_bf, y3_bf, waux, baux, wfin, bfin)
+
+
 # --- kernels ----------------------------------------------------------------
 
 def _check_args(kernel, x, expect):
@@ -450,47 +501,6 @@ def _raise_on(key, lib, err):
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: "
                            f"{lib.mlp_error_string(err).decode()} ({err})")
-
-
-def _launch(key, lib, x, out_dim, smem, call):
-    """Check the tile's shared memory, allocate the output, run
-    `call(out, stream)` on x's device and PyTorch's current stream, and count
-    the launch."""
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"{key} kernel: this hidden width needs {smem} bytes of shared "
-                         f"memory for a {_TILE_ROWS}-row tile; sm_90 allows "
-                         f"{_MAX_SMEM_BYTES}")
-    m = x.shape[0]
-    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = call(out, _stream(x.device))
-    _raise_on(key, lib, err)
-    if m:
-        launches[key] += 1
-    return out
-
-
-def _static_kernel(packed, x):
-    """Launch csrc/dyn8_mlp.cu (K4, static a8w8) on x's device."""
-    (w0, b0, wq, inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
-    key = 'int8_static_mlp'
-    hidden, n_mm = w0.shape[1], wq.shape[0]
-    expect = _expect(x, torch.bfloat16, w0, b0, bstack, waux, baux, wfin, bfin)
-    expect.update(wq=(wq, torch.int8, (n_mm, hidden, hidden)),
-                  inv_in=(inv_in, torch.float32, (n_mm,)),
-                  oscale=(oscale, torch.float32, (n_mm, hidden)))
-    _check_args(key, x, expect)
-    if n_mm < 2 or n_mm % 2:
-        raise ValueError(f"{key} kernel: needs 2 * stages + 2 int8 layers, got {n_mm}")
-    m, in_dim = x.shape
-    out_dim = wfin.shape[1] + 1
-    lib = _build.load_library()
-    return _launch(key, lib, x, out_dim, lib.int8w_mlp_smem_bytes(hidden, in_dim),
-                   lambda out, stream: lib.int8w_mlp_forward(
-                       x.data_ptr(), w0.data_ptr(), b0.data_ptr(), wq.data_ptr(),
-                       inv_in.data_ptr(), oscale.data_ptr(), bstack.data_ptr(),
-                       waux.data_ptr(), baux.data_ptr(), wfin.data_ptr(), bfin.data_ptr(),
-                       out.data_ptr(), m, in_dim, hidden, n_mm, out_dim, stream))
 
 
 def _layer_call(lib, a, w, bias, epilogue, oscale, y, out, stream):
@@ -703,6 +713,69 @@ def _layered_dyn8_kernel(packed, x):
     return out
 
 
+def _s8_static_call(key, lib, q, wt, oscale, bias, epilogue, inv_next, out, out_bf, q_next,
+                    stream):
+    """One static s8 layer on the card (csrc/wgmma_layer_kmajor.cu), checked;
+    inv_next is a one-value f32 tensor on the card, or None without q_next."""
+    m, hidden = q.shape
+    _raise_on(key, lib, lib.s8_static_layer_forward(
+        q.data_ptr(), wt.data_ptr(), oscale.data_ptr(), bias.data_ptr(), _ptr(inv_next),
+        _ptr(out), _ptr(out_bf), _ptr(q_next), m, hidden, EPILOGUES[epilogue], stream))
+
+
+def _layered_static_kernel(packed, x):
+    """K4 on x's device, as csrc/wgmma_layer_kmajor.cu launches it: the
+    transposed int8 stack, the input projection (wgmma_layer.cu), which also
+    writes the first layer's int8 input, 2S + 2 static s8 layers, each
+    writing the next layer's int8 input with that layer's inv_in (read on
+    the card), and the heads: 2S + 5 launches on the current stream, each
+    checked. Layer i reads q[i % 2] and writes q[(i + 1) % 2]; beside it the
+    'add_relu' layers update y, w2 writes bf16 y2 and w3f bf16 y3 for the
+    heads. Scratch: y (m, H) f32, two (m, H) int8 and two (m, H) bf16
+    buffers, and the transposed stack (n_mm, H, H) int8."""
+    (w0, b0, wq, inv_in, oscale, bstack, waux, baux, wfin, bfin) = packed
+    key = 'int8_static_mlp'
+    hidden, n_mm = w0.shape[1], wq.shape[0]
+    m, in_dim = x.shape
+    out_dim = wfin.shape[1] + 1
+    expect = _expect(x, torch.bfloat16, w0, b0, bstack, waux, baux, wfin, bfin)
+    expect.update(wq=(wq, torch.int8, (n_mm, hidden, hidden)),
+                  inv_in=(inv_in, torch.float32, (n_mm,)),
+                  oscale=(oscale, torch.float32, (n_mm, hidden)))
+    _check_layered(key, x, expect, n_mm, out_dim)
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    y = torch.empty((m, hidden), dtype=torch.float32, device=x.device)
+    qs = [torch.empty((m, hidden), dtype=torch.int8, device=x.device) for _ in range(2)]
+    y2_bf, y3_bf = (torch.empty((m, hidden), dtype=torch.bfloat16, device=x.device)
+                    for _ in range(2))
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = _stream(x.device)
+        wt = _transpose_int8(key, lib, wq, stream)
+        _raise_on(key, lib, lib.loco_input_int8_forward(
+            x.data_ptr(), w0.data_ptr(), b0.data_ptr(), y.data_ptr(), qs[0].data_ptr(),
+            inv_in.data_ptr(), m, in_dim, hidden, stream))
+
+        def layer(i, epilogue, res=None, res_bf=None):
+            last = i + 1 == n_mm
+            _s8_static_call(key, lib, qs[i % 2], wt[i], oscale[i], bstack[i], epilogue,
+                            None if last else inv_in[i + 1], res, res_bf,
+                            None if last else qs[(i + 1) % 2], stream)
+
+        for i in range(0, n_mm - 2, 2):
+            layer(i, 'relu')                       # h: int8 only, for the b layer
+            layer(i + 1, 'add_relu', y)             # y in place, and its int8 form
+        layer(n_mm - 2, 'store', None, y2_bf)    # y2: bf16 for the aux head, int8 for w3f
+        layer(n_mm - 1, 'relu', None, y3_bf)     # y3: bf16 for the fin head only
+        _raise_on(key, lib, lib.loco_heads_forward(
+            y2_bf.data_ptr(), y3_bf.data_ptr(), waux.data_ptr(), baux.data_ptr(),
+            wfin.data_ptr(), bfin.data_ptr(), out.data_ptr(), m, hidden, out_dim, stream))
+    launches[key] += 1
+    return out
+
+
 def _fused_kernel(packed, x):
     """K1 on x's device, by its weight type."""
     wdtype = packed[2].dtype
@@ -849,6 +922,43 @@ def loco_layer_dyn8(act, wq, oscale, bias, epilogue, y=None):
     return out, out_bf
 
 
+def loco_layer_static(q, wq, oscale, bias, epilogue, inv_next=None, y=None):
+    """One static a8w8 (K4) H x H layer on its int8 input q, as
+    `static_s8_layer_plain` computes it (with the weights transposed): a CPU
+    tensor runs that, a CUDA tensor launches csrc/wgmma_layer_kmajor.cu, the
+    transposed int8 weights and then the static s8 layer, counted once in
+    launches['wgmma_layer_static']. inv_next is the next layer's inv_in, a
+    one-value f32 tensor on q's device (read there), or None. Returns ((m, H)
+    f32, (m, H) bf16, (m, H) int8 q_next or None); 'add_relu' updates the
+    residual y in place and returns it as the f32 result. Requires H % 128
+    == 0."""
+    device = _layer_device(q, epilogue, y)
+    key = 'wgmma_layer_static'
+    _check_args(key, q, _layer_expect(q, torch.int8, wq, torch.int8, bias, y, oscale=oscale))
+    if inv_next is not None and (inv_next.device != q.device or inv_next.dtype != torch.float32
+                                 or inv_next.numel() != 1):
+        raise ValueError(f"{key} kernel: inv_next must be one f32 value on {q.device}, got "
+                         f"{inv_next.dtype} of shape {tuple(inv_next.shape)} on {inv_next.device}")
+    if device == 'cpu':
+        return static_s8_layer_plain(q, transpose_int8_plain(wq), oscale, bias, epilogue,
+                                     inv_next, y)
+    m, hidden = q.shape
+    out = y if epilogue == 'add_relu' else torch.empty(q.shape, dtype=torch.float32,
+                                                         device=q.device)
+    out_bf = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    q_next = None if inv_next is None else torch.empty_like(q)
+    if m == 0:
+        return out, out_bf, q_next
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = _stream(q.device)
+        wt = _transpose_int8(key, lib, wq, stream)
+        _s8_static_call(key, lib, q, wt, oscale, bias, epilogue, inv_next, out, out_bf, q_next,
+                        stream)
+    launches[key] += 1
+    return out, out_bf, q_next
+
+
 def fused_loco_forward_dyn8(packed, x, tile=512):
     """Dynamic-int8 fused forward on (m, in) f32 inputs; packed from
     pack_folded_weights_w8. Returns (m, out) f32. Requires hidden % 128 == 0.
@@ -873,12 +983,13 @@ fused_loco_forward_dyn8_auto = fused_loco_forward_dyn8
 def fused_loco_forward_int8(packed, x, tile=512):
     """Static a8w8 fused forward (K4) on (m, in) f32 inputs; packed from
     pack_folded_weights_int8. A measured ablation: static calibration is not
-    parity-grade on trained checkpoints (the JAX module's note). On a card:
-    csrc/dyn8_mlp.cu, one launch; its 16-row tile holds the activations in
-    shared memory, which limits hidden to 1536."""
+    parity-grade on trained checkpoints (the JAX module's note). Requires
+    hidden % 128 == 0. On a card: csrc/wgmma_layer_kmajor.cu's static s8
+    layers with wgmma_layer.cu's input projection and heads, 2S + 5
+    launches, counted as one call in launches['int8_static_mlp']."""
     del tile
     return _route('int8 forward (static)', packed, x, int8_static_forward_plain,
-                  _static_kernel)
+                  _layered_static_kernel)
 
 
 def fused_loco_forward_w8(packed, x, tile=512):

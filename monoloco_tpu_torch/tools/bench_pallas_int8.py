@@ -12,7 +12,8 @@ CUDA kernel that replaces the Pallas one:
   pallas-w8    K5, weight-only int8 (csrc/wgmma_layer.cu)
   pallas-dyn8  K2/K3, per-row dynamic int8: what MONOLOCO_TPU_PRECISION=int8
                serves (csrc/wgmma_layer_kmajor.cu, s8 layers)
-  pallas-int8  K4, static-calibrated a8w8, not parity-grade (csrc/dyn8_mlp.cu)
+  pallas-int8  K4, static-calibrated a8w8, not parity-grade
+               (csrc/wgmma_layer_kmajor.cu, static s8 layers)
   pallas-f32   K1 with f32 weights (csrc/wgmma_layer_kmajor.cu, 3xTF32
                layers); not in the default list (the JAX tool has no f32
                variant), measured when named

@@ -188,5 +188,6 @@ def test_launch_counters_cover_every_kernel():
     assert set(ops.launches) == {'dyn8_mlp', 'int8_static_mlp', 'w8_mlp',
                                  'fused_mlp_bf16', 'fused_mlp_f32',
                                  'wgmma_layer_bf16', 'wgmma_layer_w8',
-                                 'wgmma_layer_f32', 'wgmma_layer_dyn8'}
+                                 'wgmma_layer_f32', 'wgmma_layer_dyn8',
+                                 'wgmma_layer_static'}
     assert sys.modules['monoloco_tpu_torch.ops'].launches is ops.launches

@@ -35,6 +35,9 @@ Weights come from a numpy seed with perturbed BN statistics. Tolerances:
  - one dyn8 layer (row quantization + s8 layer) against `quantize_rows_plain`
    and `s8_layer_plain`: bit for bit, f32 and bf16 results and the residual;
    the int32 sums are exact and the epilogue keeps the plain float order.
+ - one static a8w8 layer against `static_s8_layer_plain`: bit for bit, f32,
+   bf16 and the next layer's int8 input, and the residual, for the same
+   reasons.
 A wrong kernel misses every one of these by orders of magnitude. A row never
 depends on the rows around it (bit for bit).
 """
@@ -157,21 +160,17 @@ def test_kernel_refuses_bad_inputs(cuda_device):
         fused_loco_forward_dyn8_auto(tuple(t.cpu() for t in packed), _inputs(8, 34, cuda_device))
 
 
-@pytest.mark.parametrize('kernel,hidden', [('k1_bf16', 1536), ('k1_f32', 2048),
-                                           ('dyn8', 2048), ('k4', 2048)])
-def test_only_k4_refuses_hidden_beyond_its_tile(cuda_device, kernel, hidden):
-    """K4's 16-row tile keeps its activations in shared memory, which one
-    block cannot hold at hidden 2048. The layer kernels keep none on the SM,
-    so K1-bf16, K1-f32 and dyn8 run there and are held to plain. (dyn8 at
-    hidden 2048: |acc| may pass 2^24, where its f32 conversion rounds half to
-    even on both sides.)"""
+@pytest.mark.parametrize('kernel', list(KERNELS))
+def test_every_kernel_runs_at_hidden_2048(cuda_device, kernel):
+    """Every kernel is layered: its activations cross device memory between
+    launches and none stay on the SM, so hidden 2048 runs (K4's former
+    16-row tile refused it) and is held to plain under the kernel's rule.
+    (The s8 layers at hidden 2048: |acc| may pass 2^24, where its f32
+    conversion rounds half to even on both sides.)"""
     entry, plain, pack, _, rule = KERNELS[kernel]
+    hidden = 2048
     folded = _folded(34, 9, hidden, cuda_device)
     packed = _packs(folded, 34, cuda_device)[pack]
-    if kernel == 'k4':
-        with pytest.raises(ValueError, match='shared memory'):
-            entry(packed, _inputs(8, 34, cuda_device))
-        return
     for m in (1, 77, 512):
         x = _inputs(m, 34, cuda_device, seed=m)
         out = entry(packed, x)
@@ -249,6 +248,31 @@ def test_dyn8_layer_kernel_is_its_plain_layer_bit_for_bit(cuda_device, hidden, e
         assert out.dtype == torch.float32 and out_bf.dtype == torch.bfloat16
         assert torch.equal(out, ref) and torch.equal(out_bf, ref_bf)
         assert torch.equal(y_k, y_p)
+
+
+@pytest.mark.parametrize('epilogue', ['store', 'relu', 'add_relu'])
+@pytest.mark.parametrize('hidden', [128, 256, 1024])
+def test_static_layer_kernel_is_its_plain_layer_bit_for_bit(cuda_device, hidden, epilogue):
+    w, bias = _layer_operands(hidden, hidden + 13, cuda_device)
+    wq, wscale = ops.quant_weight(w)
+    s_in = torch.full((), 3.0 / 127.0, device=cuda_device)
+    wq, oscale = wq.contiguous(), (s_in * wscale).contiguous()
+    inv_next = torch.full((1,), 127.0 / 2.0, device=cuda_device)    # clips some outputs
+    for m in (1, 77, 512):
+        q = ops.quantize_static_plain(_inputs(m, hidden, cuda_device, seed=m), 1 / s_in)
+        y0 = _inputs(m, hidden, cuda_device, seed=m + 1)
+        y_k, y_p = y0.clone(), y0.clone()
+        before = ops.launches['wgmma_layer_static']
+        out, out_bf, q_next = ops.loco_layer_static(q, wq, oscale, bias, epilogue, inv_next,
+                                                    y_k)
+        torch.cuda.synchronize()
+        assert ops.launches['wgmma_layer_static'] == before + 1
+        ref, ref_bf, ref_q = ops.static_s8_layer_plain(q, ops.transpose_int8_plain(wq), oscale,
+                                                       bias, epilogue, inv_next, y_p)
+        assert out.dtype == torch.float32 and out_bf.dtype == torch.bfloat16
+        assert q_next.dtype == torch.int8 and q_next.shape == (m, hidden)
+        assert torch.equal(out, ref) and torch.equal(out_bf, ref_bf)
+        assert torch.equal(q_next, ref_q) and torch.equal(y_k, y_p)
 
 
 @pytest.mark.parametrize('epilogue', ['store', 'relu', 'add_relu'])
