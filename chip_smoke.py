@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main path once on one CUDA card and check it.
+"""Drive the torch port's main paths once on one CUDA card and check them.
 
 Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
 
@@ -33,20 +33,39 @@ to the CPU):
     dyn8 layer (row quantization + s8 layer, each epilogue, bit for bit) and
     a static a8w8 layer (each epilogue, bit for bit, the next layer's int8
     input included).
+ 7b. K6, `relu_chain` (the roofline probe's 8 bf16 relu layers on
+    csrc/wgmma_layer.cu), against `relu_chain_plain` at 131072 x 1024 x 8
+    under the bf16 rule, rows independent. Phase 6 times it beside its plain
+    version and the `torch.matmul` chain, launch by launch.
  8. The serving bench and the ablation tools, as a user runs them:
     `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
     int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
     pallas-f32; `tools.bench_pallas_crossover` at hidden 1024, batch 256 and
     131072. Each JSON line is printed; each checksum must be finite and
     each kernel variant must have launched its kernel.
-The launch counts of the report are those of the main-path runs (phases 4
-and 8, each with every count set to 0 just before it); a count is one call
-of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16, 2S + 5
-for K5, K1-f32 and K4, and 4S + 7 for dyn8. Each report entry has its time, its
-plain version's, the bound (the larger of its operations over the card's
-peak for their type and its bytes over 3.35 TB/s, from this run's shapes)
-and `library_ms`, the `torch.matmul` MLP of the same weight type where there
-is one. K1-f32's operations are counted three times at the TF32
+ 9. The stereo main path through the CLI entry point: MonStereo at full
+    width (68 -> 10, hidden 1024, 3 stages, weights from a seed as in phase
+    4), 64 (left, right) pairs of the fixture, 16 poses each, the right
+    poses shifted left by BF / z: `predict --mode stereo` under int8 (one
+    16384-row dispatch, the dyn8 kernel) and at float32 (no launch). The
+    outputs are held against the rows recomputed outside the engine, and
+    int8 against float32 under the dyn8 budget where both chose the same
+    right pose (the share that did not is printed).
+ 10. dyn8 at 68 -> 10, hidden 1024, against its plain version on pairing
+    rows from `preprocess_monstereo` (77, 1024 and 16384 rows), rows
+    independent bit for bit.
+ 11. The roofline tool as a user runs it
+    (`monoloco_tpu_torch.tools.bench_roofline`): its four JSON rows are
+    printed, each checksum must be finite and `relu_chain` must launch.
+The launch counts of the report are those of the main-path runs (phases 4,
+8, 9 and 11, each with every count set to 0 just before it); a count is one
+call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
+2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
+entry has its time, its plain version's, the bound (the larger of its
+operations over the card's peak for their type and its bytes over 3.35
+TB/s, from this run's shapes) and `library_ms`, the `torch.matmul` MLP of
+the same weight type where there is one (for K6 the `torch.matmul` chain).
+K1-f32's operations are counted three times at the TF32
 tensor-core peak: the least time in which this card computes an
 f32-accurate product is 3xTF32 on the tensor cores, not one pass on the
 CUDA cores (67 TFLOP/s). The line before the last is the kernel report
@@ -101,6 +120,10 @@ LAYER_TOL_OFF = 0.01
 # One 3xTF32 layer against its plain layer: within F32_LAYER_TOL (1 + |ref|).
 F32_LAYER_TOL = 1e-5
 PREDICT_ROWS = 1024        # the predict dispatch of phase 4
+STEREO_IN, STEREO_OUT = 68, 10     # MonStereo
+STEREO_PAIRS = 64          # phase 9: 64 pairs x 16 x 16 poses, one 16384-row dispatch
+STEREO_PAIRINGS = ((7, 11), (32, 32), (128, 128))   # phase 10: 77, 1024, 16384 rows
+CHAIN_LAYERS = 8           # K6, the roofline tool's relu chain
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -129,12 +152,13 @@ def smi_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def make_weights():
-    """Loco params from SEED at full width, with BN statistics and affine
-    perturbed so that the fold is not the identity."""
+def make_weights(in_dim=IN_DIM, out_dim=OUT_DIM, seed=SEED):
+    """Loco params from `seed` at full width (MonoLoco++ 34 -> 9 by default,
+    MonStereo 68 -> 10), with BN statistics and affine perturbed so that the
+    fold is not the identity."""
     from monoloco_tpu_torch.models import init_loco_params
-    params, bn_state = init_loco_params(SEED, IN_DIM, OUT_DIM, HIDDEN, STAGES)
-    rng = np.random.default_rng(SEED + 1)
+    params, bn_state = init_loco_params(seed, in_dim, out_dim, HIDDEN, STAGES)
+    rng = np.random.default_rng(seed + 1)
 
     def perturb(p, s):
         shape = tuple(s['mean'].shape)
@@ -155,17 +179,36 @@ def make_weights():
     return params, bn_state
 
 
+def make_poses(m, seed):
+    """(m, 3, 17) pifpaf-like keypoints over a KITTI image, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    centre = torch.rand((m, 2, 1), generator=gen) * torch.tensor([[1238.], [374.]])
+    spread = torch.rand((m, 2, 17), generator=gen) * torch.tensor([[60.], [160.]])
+    return torch.cat([centre + spread - spread.mean(2, keepdim=True),
+                      torch.rand((m, 1, 17), generator=gen)], dim=1)
+
+
+def _kitti_kk(device):
+    from monoloco_tpu_torch.network import load_calibration
+    return torch.tensor(load_calibration('kitti', (1238, 374)), device=device)
+
+
 def make_inputs(m, device):
     """(m, 34) MLP inputs the way the main path makes them: pifpaf-like
     keypoints over a KITTI image, K^-1-normalized at z=10."""
-    from monoloco_tpu_torch.network import preprocess_monoloco, load_calibration
-    gen = torch.Generator().manual_seed(SEED + m)
-    centre = torch.rand((m, 2, 1), generator=gen) * torch.tensor([[1238.], [374.]])
-    spread = torch.rand((m, 2, 17), generator=gen) * torch.tensor([[60.], [160.]])
-    kps = torch.cat([centre + spread - spread.mean(2, keepdim=True),
-                     torch.rand((m, 1, 17), generator=gen)], dim=1)
-    kk = torch.tensor(load_calibration('kitti', (1238, 374)))
-    return preprocess_monoloco(kps.to(device), kk.to(device)).contiguous()
+    from monoloco_tpu_torch.network import preprocess_monoloco
+    return preprocess_monoloco(make_poses(m, SEED + m).to(device), _kitti_kk(device)).contiguous()
+
+
+def make_pairing_inputs(m, r, device):
+    """(m * r, 68) MonStereo inputs the way the stereo path makes them: m
+    left and r right pifpaf-like poses paired all against all by
+    `preprocess_monstereo`."""
+    from monoloco_tpu_torch.network import preprocess_monstereo
+    inputs, _ = preprocess_monstereo(make_poses(m, SEED + m).to(device),
+                                     make_poses(r, SEED + 7 * r + 1).to(device),
+                                     _kitti_kk(device))
+    return inputs.contiguous()
 
 
 def phase_device():
@@ -228,30 +271,34 @@ def _zero_launches():
         launches[key] = 0
 
 
-def _run_predict(precision, model, img_dir, out_dir):
+def _run_predict(precision, model, img_dir, out_dir, mode='mono'):
+    """The predict CLI over img_dir's PNGs, with every launch count set to 0
+    just before; returns (the engine, the dyn8 launches of the run)."""
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.ops import launches
     os.environ['MONOLOCO_TPU_PRECISION'] = precision
     _zero_launches()
-    net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', 'mono',
+    net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', mode,
                     '--model', model, '--calibration', 'kitti',
                     '--output_types', 'json', '-o', out_dir])
     torch.cuda.synchronize()
     return net, launches['dyn8_mlp']
 
 
-def _read_outputs(out_dir, n):
+def _read_outputs(out_dir, n, keys=('dds_pred', 'stds_ale', 'confs', 'xyz_pred', 'angles')):
+    """{key: values of every detection, file by file in name order} of the
+    n .monoloco.json files in out_dir; each key finite and non-empty."""
     files = sorted(f for f in os.listdir(out_dir) if f.endswith('.monoloco.json'))
     check(len(files) == n, f"{len(files)} .monoloco.json files in {out_dir}, expected {n}")
-    dds = []
+    out = {key: [] for key in keys}
     for f in files:
         with open(os.path.join(out_dir, f)) as fh:
             dic = json.load(fh)
-        for key in ('dds_pred', 'stds_ale', 'confs', 'xyz_pred', 'angles'):
+        for key in keys:
             vals = np.asarray(dic[key], np.float64)
             check(vals.size > 0 and np.isfinite(vals).all(), f"{f}: bad {key}")
-        dds.append(np.asarray(dic['dds_pred'], np.float64))
-    return np.concatenate(dds)
+            out[key].append(vals)
+    return {key: np.concatenate(v) for key, v in out.items()}
 
 
 def phase_main_path(params, bn_state, tmp):
@@ -274,10 +321,10 @@ def phase_main_path(params, bn_state, tmp):
           flush=True)
     check(net.n_dispatches_int8 > 0, "no dispatch routed to int8")
     check(n_launch > 0, "the main path never launched the dyn8 kernel")
-    d8 = _read_outputs(os.path.join(tmp, 'out_int8'), 64)
+    d8 = _read_outputs(os.path.join(tmp, 'out_int8'), 64)['dds_pred']
     net32, n32 = _run_predict('float32', model, img_dir, os.path.join(tmp, 'out_f32'))
     check(net32.n_dispatches_int8 == 0 and n32 == 0, "float32 run touched the kernel")
-    d32 = _read_outputs(os.path.join(tmp, 'out_f32'), 64)
+    d32 = _read_outputs(os.path.join(tmp, 'out_f32'), 64)['dds_pred']
     rel = float(np.abs(d8 - d32).mean() / np.abs(d32).mean())
     print(f"dds_pred int8 vs float32: mean relative deviation {rel:.3e} "
           f"(budget {DYN8_BUDGET}) over {d8.size} detections")
@@ -364,6 +411,7 @@ def phase_times(kernels, folded, smi):
             v = [_time_ms(lambda u: fn(packed, u), small) for _ in range(21)]
             print(f"dyn8_mlp {name} at {PREDICT_ROWS} rows: median {statistics.median(v):.4f} ms "
                   f"over {len(v)} runs (min {min(v):.4f}, max {max(v):.4f})")
+    med.update(time_relu_chain())
     breakdowns = {name: launch_breakdown(name, *kernels[name][::2], x,
                                          in_order=name in ('dyn8_mlp', 'int8_static_mlp'))
                   for name in LAYERED}
@@ -380,6 +428,52 @@ def phase_times(kernels, folded, smi):
               f"{peak / 2 ** 20:.1f} MiB ({peak} bytes, output included)")
         del out
     return med
+
+
+def time_relu_chain():
+    """K6 at 131072 x 1024 x 8 beside its plain version and the
+    `torch.matmul` chain, median of 7 in turns; its launch-by-launch device
+    time and peak memory. Returns the medians by name."""
+    from monoloco_tpu_torch.ops import relu_chain, relu_chain_plain
+    from monoloco_tpu_torch.tools.bench_roofline import relu_chain_library
+    x, ws = relu_chain_inputs()
+    paths = {'relu_chain_bf16 kernel': lambda v: relu_chain(v, ws),
+             'relu_chain_bf16 plain': lambda v: relu_chain_plain(v, ws),
+             'relu chain (torch.matmul)': lambda v: relu_chain_library(v, ws)}
+    times = {name: [] for name in paths}
+    with torch.inference_mode():
+        for fn in paths.values():
+            for _ in range(2):
+                fn(x)
+        torch.cuda.synchronize()
+        for _ in range(7):
+            for name, fn in paths.items():
+                times[name].append(_time_ms(fn, x))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    for name, v in times.items():
+        print(f"{name} at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}: median {med[name]:.4f} ms "
+              f"over {len(v)} runs (min {min(v):.4f}, max {max(v):.4f})")
+    launch_breakdown('relu_chain_bf16', lambda p, v: relu_chain(v, p), ws, x, in_order=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = relu_chain(x, ws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"relu_chain_bf16: peak device memory of one call above its inputs "
+          f"{peak / 2 ** 20:.1f} MiB ({peak} bytes, output included)")
+    del out
+    return med
+
+
+def chain_bound(m):
+    """(ms, 'bytes' or 'operations') for K6 on m rows: its bf16 products over
+    the bf16 peak, or x and y (bf16, once each) and the weights over the
+    memory rate."""
+    ops = 2 * m * HIDDEN * HIDDEN * CHAIN_LAYERS
+    nbytes = 2 * m * HIDDEN * 2 + CHAIN_LAYERS * HIDDEN * HIDDEN * 2
+    t_ops, t_bytes = ops / PEAK_OPS['bf16'], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
 
 def launch_breakdown(name, entry, packed, x, in_order=False):
@@ -660,14 +754,216 @@ def phase_bench():
     return dict(launches)
 
 
+def _stereo_pairs(img_dir):
+    """STEREO_PAIRS (left, right) image pairs in img_dir: each left image the
+    KITTI fixture with its 16 pifpaf poses, each right image a copy whose
+    poses (keypoints and box) sit left by a disparity BF / z, z drawn per
+    pose in 5-40 m from a seed."""
+    from monoloco_tpu_torch.geometry import BF
+    with open(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json')) as f:
+        anns = json.load(f)
+    rng = np.random.default_rng(SEED + 13)
+    for i in range(STEREO_PAIRS):
+        right = []
+        for ann in anns:
+            shift = BF / rng.uniform(5, 40)
+            kps = list(ann['keypoints'])
+            kps[0::3] = [x - shift for x in kps[0::3]]
+            box = list(ann['bbox'])
+            box[0] -= shift
+            box[2] -= shift
+            right.append({**ann, 'keypoints': kps, 'bbox': box})
+        for side, poses in (('a', anns), ('b', right)):
+            dst = os.path.join(img_dir, f'pair{i:03d}{side}.png')
+            shutil.copy(FIXTURE, dst)
+            with open(dst + '.pifpaf.json', 'w') as f:
+                json.dump(poses, f)
+
+
+def _stereo_rows(img_dir):
+    """The rows of the stereo engine's one batched dispatch over img_dir's
+    pairs, (STEREO_PAIRS * m * r, 68), made as predict and the engine make
+    them: the poses as predict reads them, one batched pairing. Every image
+    holds the fixture's 16 poses, so no pose or image is padding."""
+    from monoloco_tpu_torch.network import (load_calibration, preprocess_monstereo,
+                                            preprocess_pifpaf)
+    from monoloco_tpu_torch.predict import image_size
+    lefts, rights, kks = [], [], []
+    for i in range(STEREO_PAIRS):
+        path = os.path.join(img_dir, f'pair{i:03d}a.png')
+        im_size = tuple(float(v) for v in image_size(path))
+        for side, poses in (('a', lefts), ('b', rights)):
+            with open(os.path.join(img_dir, f'pair{i:03d}{side}.png.pifpaf.json')) as f:
+                poses.append(preprocess_pifpaf(json.load(f), im_size)[1])
+        kks.append(load_calibration('kitti', im_size))
+    dev = [torch.tensor(np.asarray(a, np.float32), device='cuda') for a in (lefts, rights, kks)]
+    inputs, _ = preprocess_monstereo(*dev)
+    return inputs.reshape(-1, STEREO_IN).contiguous(), len(lefts[0]), len(rights[0])
+
+
+def phase_stereo(params, bn_state, tmp):
+    """predict --mode stereo on STEREO_PAIRS pairs at int8 (one 16384-row
+    dispatch, the dyn8 kernel) and at float32 (no launch). Each run's
+    outputs are held against the rows recomputed outside the engine, and
+    int8 against float32 where both chose the same right pose. Returns the
+    launch counts of the int8 run."""
+    from monoloco_tpu_torch.models import fold_eval_params, folded_forward, save_checkpoint
+    from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
+    print(f"== phase 9: main path, python -m monoloco_tpu_torch.run predict --mode stereo, "
+          f"{STEREO_PAIRS} pairs", flush=True)
+    model = os.path.join(tmp, f'monstereo_h{HIDDEN}.pkl')
+    save_checkpoint(model, params, bn_state, meta={'seed': SEED + 2})
+    img_dir = os.path.join(tmp, 'stereo_images')
+    os.makedirs(img_dir)
+    _stereo_pairs(img_dir)
+    keys = ('dds_pred', 'stds_ale', 'confs', 'xyz_pred', 'angles', 'aux')
+    outs, n_launch = {}, {}
+    for precision in ('int8', 'float32'):
+        out_dir = os.path.join(tmp, f'stereo_{precision}')
+        t0 = time.perf_counter()
+        net, n_launch[precision] = _run_predict(precision, model, img_dir, out_dir,
+                                                mode='stereo')
+        print(f"{precision} run: {time.perf_counter() - t0:.2f} s wall, dispatches "
+              f"{net.n_dispatches}, int8 dispatches {net.n_dispatches_int8}, dyn8 kernel "
+              f"launches {n_launch[precision]}", flush=True)
+        if precision == 'int8':
+            check(net.n_dispatches_int8 > 0, "no stereo dispatch routed to int8")
+            check(n_launch[precision] > 0, "the stereo path never launched the dyn8 kernel")
+        else:
+            check(net.n_dispatches_int8 == 0 and n_launch[precision] == 0,
+                  "the float32 stereo run touched the kernel")
+        outs[precision] = _read_outputs(out_dir, STEREO_PAIRS, keys)
+    # The right pose each left pose chose: the argmax of the aux logit over
+    # the same pairing rows, recomputed here (no row depends on the rows
+    # around it, in either path).
+    rows, m, r = _stereo_rows(img_dir)
+    folded = _to_cuda(fold_eval_params(params, bn_state))
+    raw = {'int8': fused_loco_forward_dyn8_auto(pack_folded_weights_w8(folded), rows),
+           'float32': folded_forward(folded, rows)}
+    chosen = {}
+    for precision, v in raw.items():
+        v = v.reshape(STEREO_PAIRS, m, r, STEREO_OUT)
+        chosen[precision] = torch.argmax(v[..., -1], dim=2)
+        picked = torch.take_along_dim(v, chosen[precision][..., None, None], dim=2)
+        picked = picked.reshape(-1, STEREO_OUT).double().cpu()
+        err = max(float((torch.from_numpy(outs[precision]['dds_pred'])
+                         - picked[:, D_CHANNEL]).abs().max()),
+                  float((torch.from_numpy(outs[precision]['aux'])
+                         - torch.sigmoid(picked[:, -1])).abs().max()))
+        print(f"{precision}: the CLI's dds_pred and aux against the recomputed choice: max abs "
+              f"diff {err:.3e}")
+        check(err <= 1e-4, f"{precision} stereo outputs are not the rows the engine chose")
+    same = (chosen['int8'] == chosen['float32']).reshape(-1).cpu().numpy()
+    d8, d32 = outs['int8']['dds_pred'], outs['float32']['dds_pred']
+    rel_all = float(np.abs(d8 - d32).mean() / np.abs(d32).mean())
+    check(same.any(), "int8 and float32 never choose the same right pose")
+    rel = float(np.abs(d8 - d32)[same].mean() / np.abs(d32[same]).mean())
+    print(f"stereo dds_pred int8 vs float32 over {d8.size} detections ({m} x {r} pairings an "
+          f"image): right pose chosen differently for {int((~same).sum())} "
+          f"({float((~same).mean()):.4f}); mean relative deviation {rel:.3e} where the choice "
+          f"agrees (budget {DYN8_BUDGET}), {rel_all:.3e} over all")
+    check(rel < DYN8_BUDGET, "int8 stereo dds_pred outside the dyn8 budget")
+    return {'dyn8_mlp': n_launch['int8']}
+
+
+def phase_dyn8_stereo(s_packed, s_folded):
+    """dyn8 at MonStereo's widths, 68 -> 10, hidden 1024, on pairing rows,
+    against its plain version under the int8 rule, and row independence."""
+    from monoloco_tpu_torch.models import folded_forward
+    from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto, launches
+    print(f"== phase 10: dyn8 vs plain at 68 -> 10, hidden {HIDDEN}, {STAGES} stages, on "
+          f"stereo pairing rows", flush=True)
+    worst = 0.0
+    for m, r in STEREO_PAIRINGS:
+        x = make_pairing_inputs(m, r, 'cuda')
+        before = launches['dyn8_mlp']
+        out = fused_loco_forward_dyn8_auto(s_packed, x)
+        torch.cuda.synchronize()
+        check(launches['dyn8_mlp'] == before + 1, "dyn8 68->10: launch counter did not rise")
+        check(out.shape == (m * r, STEREO_OUT), f"dyn8 68->10: output shape {tuple(out.shape)}")
+        worst = max(worst, _compare(f"dyn8_mlp 68->10 ({m} x {r})", 'int8', out,
+                                    dyn8_forward_plain(s_packed, x), folded_forward(s_folded, x)))
+    for n in (1, 8, 77, 1024):
+        check(torch.equal(fused_loco_forward_dyn8_auto(s_packed, x[:n].contiguous()), out[:n]),
+              f"dyn8 68->10: kernel(x[:{n}]) != kernel(x)[:{n}]")
+    print("dyn8_mlp 68->10: rows bit-equal at m = 1, 8, 77, 1024")
+    return worst
+
+
+def relu_chain_inputs():
+    """K6's operands at its tool's shape, 131072 x 1024 x 8, bf16 on the
+    card: x ~ N(0, 1), weights ~ N(0, 2 / H), so the activations stay O(1)
+    through the chain (the tool's own 0.01 scale shrinks them 4x a layer)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    x = torch.randn((TIMING_ROWS, HIDDEN), device='cuda', generator=gen).to(torch.bfloat16)
+    ws = [(torch.randn((HIDDEN, HIDDEN), device='cuda', generator=gen) * (2 / HIDDEN) ** 0.5)
+          .to(torch.bfloat16) for _ in range(CHAIN_LAYERS)]
+    return x, ws
+
+
+def phase_relu_chain():
+    """K6 (relu_chain) against relu_chain_plain at 131072 x 1024 x 8, under
+    the bf16 rule scaled to the outputs: the chain's outputs reach about 7
+    (N(0, 2 / H) weights keep their second moment), where one bf16 ulp is
+    3e-2 and a flip or two reaches the rule's 5e-2, so both are divided by
+    the plain version's largest output first.
+    The f32 chain (no bf16 rounding) is the third party. Returns the max
+    abs error unscaled."""
+    from monoloco_tpu_torch.ops import launches, relu_chain, relu_chain_plain
+    print(f"== phase 7b: relu_chain (K6) vs plain at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}",
+          flush=True)
+    x, ws = relu_chain_inputs()
+    before = launches['relu_chain_bf16']
+    out = relu_chain(x, ws)
+    torch.cuda.synchronize()
+    check(launches['relu_chain_bf16'] == before + 1, "relu_chain: launch counter did not rise")
+    check(out.shape == x.shape and out.dtype == torch.bfloat16, "relu_chain: output")
+    f32 = x.float()
+    for w in ws:
+        f32 = torch.relu(f32 @ w.float())
+    ref = relu_chain_plain(x, ws).float()
+    scale = float(ref.abs().max())
+    worst = float((out.float() - ref).abs().max())
+    print(f"relu_chain_bf16: largest output {scale:.4e}, max abs err {worst:.4e} unscaled")
+    _compare('relu_chain_bf16 / max|plain|', 'bf16', out.float() / scale, ref / scale,
+             f32 / scale)
+    small = x[:512].contiguous()
+    check(torch.equal(relu_chain(small, ws), out[:512]), "relu_chain: rows depend on the batch")
+    print("relu_chain_bf16: rows bit-equal at m = 512")
+    return worst
+
+
+def phase_roofline():
+    """The roofline tool as a user runs it; returns its launch counts."""
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.tools import bench_roofline
+    print("== phase 11: python -m monoloco_tpu_torch.tools.bench_roofline", flush=True)
+    _zero_launches()
+    rows = bench_roofline.main([])
+    torch.cuda.synchronize()
+    check([r['which'] for r in rows] == ['peak_8192cubed_tflops', 'chain_xla_tflops',
+                                         'chain_pallas_resident_tflops', 'serve_inf_per_sec'],
+          "roofline rows incomplete")
+    check(all(np.isfinite(r['checksum']) and np.isfinite(r['value']) for r in rows),
+          "roofline: bad checksum")
+    check(launches['relu_chain_bf16'] > 0, "roofline: relu_chain never launched")
+    return dict(launches)
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
+
+
 RULES = {'fused_mlp_bf16': 'bf16', 'fused_mlp_f32': 'f32', 'int8_static_mlp': 'int8',
          'w8_mlp': 'bf16'}
 REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
+            'relu_chain_bf16': 'tools/bench_roofline.py:100 (bench_chain_resident)',
             'fused_mlp_bf16': 'monoloco_tpu/ops/fused_mlp.py:63',
             'fused_mlp_f32': 'monoloco_tpu/ops/fused_mlp.py:63',
             'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
             'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
 SOURCES = {'dyn8_mlp': 'wgmma_layer_kmajor.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
+           'relu_chain_bf16': 'wgmma_layer.cu',
            'fused_mlp_f32': 'wgmma_layer_kmajor.cu', 'int8_static_mlp': 'wgmma_layer_kmajor.cu',
            'w8_mlp': 'wgmma_layer.cu'}
 # The type of each kernel's products and how many passes of them it makes
@@ -676,6 +972,7 @@ SOURCES = {'dyn8_mlp': 'wgmma_layer_kmajor.cu', 'fused_mlp_bf16': 'wgmma_layer.c
 OP_TYPE = {'dyn8_mlp': ('int8', 1), 'fused_mlp_bf16': ('bf16', 1), 'fused_mlp_f32': ('tf32', 3),
            'int8_static_mlp': ('int8', 1), 'w8_mlp': ('bf16', 1)}
 LIBRARY = {'fused_mlp_bf16': 'bf16 folded (torch.matmul)',
+           'relu_chain_bf16': 'relu chain (torch.matmul)',
            'fused_mlp_f32': 'f32 folded (torch.matmul)',
            'w8_mlp': 'bf16 folded (torch.matmul)'}
 
@@ -706,13 +1003,12 @@ def main():
         fail(f"run from the root of a monoloco_tpu checkout ({exc})")
     check('jax' not in sys.modules, "jax was imported")
     from monoloco_tpu_torch.models import fold_eval_params, init_loco_params
+    from monoloco_tpu_torch.ops import pack_folded_weights_w8
     from monoloco_tpu_torch.ops.quant import synthetic_calibration_inputs
 
     smi = phase_device()
     params, bn_state = make_weights()
-    to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()}
-                         if isinstance(t, dict) else t.cuda())
-    folded = fold_eval_params(to_cuda(params), to_cuda(bn_state))
+    folded = fold_eval_params(_to_cuda(params), _to_cuda(bn_state))
     kernels = make_kernels(folded, synthetic_calibration_inputs(IN_DIM, n=4096, device='cuda'))
     packed = kernels['dyn8_mlp'][2]
     max_err = {'dyn8_mlp': phase_kernel(packed, M_ROWS)}
@@ -722,20 +1018,33 @@ def main():
     phase_reference()
     med = phase_times(kernels, folded, smi)
     s_params, s_bn = init_loco_params(SEED + 2, 68, 10, HIDDEN, STAGES)
-    s_folded = fold_eval_params(to_cuda(s_params), to_cuda(s_bn))
+    s_folded = fold_eval_params(_to_cuda(s_params), _to_cuda(s_bn))
     s_calib = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
         size=(4096, 68)).astype(np.float32)).cuda()
     stereo = {name: (*kern, s_folded) for name, kern in make_kernels(s_folded, s_calib).items()}
     max_err.update(phase_new_kernels(kernels, folded, stereo))
+    max_err['relu_chain_bf16'] = phase_relu_chain()
     for key, n in phase_bench().items():
         main_launches[key] = main_launches.get(key, 0) + n
+    # MonStereo at full width, the weights of the stereo main path.
+    m_params, m_bn = make_weights(STEREO_IN, STEREO_OUT, SEED + 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        main_launches['dyn8_mlp'] += phase_stereo(m_params, m_bn, tmp)['dyn8_mlp']
+    m_folded = fold_eval_params(_to_cuda(m_params), _to_cuda(m_bn))
+    max_err['dyn8_mlp'] = max(max_err['dyn8_mlp'],
+                              phase_dyn8_stereo(pack_folded_weights_w8(m_folded), m_folded))
+    main_launches['relu_chain_bf16'] = phase_roofline()['relu_chain_bf16']
     check('jax' not in sys.modules, "jax was imported")
-    missing = [k for k in kernels if main_launches.get(k, 0) == 0]
+    names = list(kernels) + ['relu_chain_bf16']
+    missing = [k for k in names if main_launches.get(k, 0) == 0]
     check(not missing, f"the main path never launched {missing}")
 
     kernel_lines = []
-    for name, (_, _, packed) in kernels.items():
-        bound_ms, bound_by = bound(name, packed, TIMING_ROWS)
+    for name in names:
+        if name == 'relu_chain_bf16':
+            bound_ms, bound_by = chain_bound(TIMING_ROWS)
+        else:
+            bound_ms, bound_by = bound(name, kernels[name][2], TIMING_ROWS)
         kernel_lines.append({
             "name": name, "route": "cuda",
             "source": f"monoloco_tpu_torch/ops/csrc/{SOURCES[name]}",

@@ -6,3 +6,13 @@ from .camera import (
 )
 from .iou import iou_matrix, get_iou_matches, reorder_matches
 from .host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
+from .stereo import (
+    BF,
+    average_locations,
+    depth_to_pixel_error,
+    disparity_to_depth,
+    extract_stereo_matches,
+    interquartile_mask,
+    mask_joint_disparity,
+    verify_stereo,
+)

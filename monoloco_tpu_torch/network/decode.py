@@ -61,3 +61,23 @@ def extract_outputs_mono(outputs):
     yaw_pred = torch.atan2(raw['ori'][:, 0:1], raw['ori'][:, 1:2])
     yaw_orig = back_correct_angles(yaw_pred, xyzd[:, 0:3])
     return {**raw, 'xyzd': xyzd, 'd': dd, 'bi': bi, 'yaw': (yaw_pred, yaw_orig)}
+
+
+def cluster_outputs(outputs, clusters):
+    """Reshape flat all-vs-all stereo outputs (m*r, c) -> (m, r, c)."""
+    outputs = torch.as_tensor(outputs)
+    if clusters == 0:
+        clusters = max(1, round(outputs.shape[0] / 2))
+    assert outputs.shape[0] % clusters == 0, "Unexpected number of inputs"
+    return outputs.reshape(-1, clusters, outputs.shape[1])
+
+
+def filter_outputs(outputs):
+    """Keep, per left pose, the right pairing with the largest auxiliary
+    score, the first one where several tie (as `jnp.argmax`). Returns ((m,
+    c) best rows, (m, r) bool mask of the rows that reach the maximum)."""
+    val = outputs[:, :, -1]
+    best = torch.argmax(val, dim=1)
+    mask = val >= val.amax(dim=1, keepdim=True)
+    selected = torch.take_along_dim(outputs, best[:, None, None], dim=1)[:, 0, :]
+    return selected, mask

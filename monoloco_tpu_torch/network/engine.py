@@ -1,10 +1,11 @@
-"""Inference engine: the mono `Loco` of `monoloco_tpu/network/engine.py` in
-torch.
+"""Inference engine: the `Loco` of `monoloco_tpu/network/engine.py` in torch,
+mono (MonoLoco++) and stereo (MonStereo).
 
-Per dispatch, on the engine's device: K^-1 keypoint normalization, the
-BN-folded residual MLP, and the physical decode. Everything after (ground
-truth matching, output dict assembly) is host numpy on a handful of
-detections.
+Per dispatch, on the engine's device: K^-1 keypoint normalization (for
+stereo, the all-vs-all pairing of left and right poses), the BN-folded
+residual MLP, for stereo the choice of each left pose's right partner by the
+aux logit, and the physical decode. Everything after (ground truth matching,
+output dict assembly) is host numpy on a handful of detections.
 
 MLP routing (`_mlp_forward`), as in the JAX package:
  - default / float32: the plain f32 folded forward (`FoldedLoco`, torch.matmul);
@@ -14,13 +15,16 @@ MLP routing (`_mlp_forward`), as in the JAX package:
 measured dyn8/bf16 crossover on a TPU v5e. It has not been measured on the
 H100 (MONOLOCO_TPU_INT8_MIN_ROWS overrides it).
 
+A stereo dispatch has m x r rows (B x m x r in a batch), so it crosses the
+floor sooner than a mono one.
+
 Detection counts pad to power-of-two buckets (`_bucket`): the JAX package
 needs them to bound recompiles, and here routing reads the padded row count,
-so both engines route a given batch the same way.
+so both engines route a given batch the same way. Stereo pads m and r to
+their buckets separately; padded right columns cannot win the aux argmax.
 
-Not ported yet, and refused with NotImplementedError: stereo (ROADMAP
-Queue 1 item 5), MC-dropout epistemic passes (item 6), device meshes
-(item 12).
+Not ported yet, and refused with NotImplementedError: MC-dropout epistemic
+passes (ROADMAP Queue 1 item 1), device meshes (item 9).
 """
 
 import math
@@ -32,12 +36,13 @@ import torch
 
 from ..geometry import get_iou_matches, reorder_matches
 from ..geometry.host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
+from ..geometry.stereo import BF, mask_joint_disparity
 from ..models import (FoldedLoco, fold_eval_params, folded_forward, load_checkpoint,
                       params_from_numpy)
 from ..ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
 from ..utils.precision import serving_precision
 from .decode import extract_outputs, extract_outputs_mono, unnormalize_bi
-from .preprocess import preprocess_monoloco
+from .preprocess import preprocess_monoloco, preprocess_monstereo
 
 _INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '512'))
 
@@ -93,23 +98,28 @@ def default_device():
 class Loco:
     """Load a localization net and run preprocess -> forward -> postprocess."""
 
-    NETS = ('monoloco_pp', 'monoloco_p', 'monoloco')
+    NETS = ('monstereo', 'monoloco_pp', 'monoloco_p', 'monoloco')
 
     def __init__(self, model, mode='mono', net=None, device=None, n_dropout=0,
-                 mesh=None):
-        if mode != 'mono':
-            raise NotImplementedError(
-                "stereo (MonStereo) is not ported yet: ROADMAP Queue 1 item 5")
+                 p_dropout=0.2, linear_size=1024, n_stage=3, mesh=None):
+        if mode not in ('mono', 'stereo'):
+            raise ValueError(f"mode not recognized: {mode}")
         if n_dropout > 0:
             raise NotImplementedError(
-                "MC-dropout epistemic passes are not ported yet: ROADMAP Queue 1 item 6")
+                "MC-dropout epistemic passes are not ported yet: ROADMAP Queue 1 item 1")
         if mesh is not None:
             raise NotImplementedError(
-                "device meshes are not ported yet: ROADMAP Queue 1 item 12")
-        self.net = 'monoloco_pp' if net is None else net
-        if self.net not in self.NETS:
-            raise ValueError(f"mono net not recognized: {self.net}")
+                "device meshes are not ported yet: ROADMAP Queue 1 item 9")
+        self.mode = mode
+        if net is None:
+            net = 'monoloco_pp' if mode == 'mono' else 'monstereo'
+        if net not in self.NETS:
+            raise ValueError(f"net not recognized: {net}")
+        self.net = net
         self.arch = 'monoloco' if self.net in ('monoloco', 'monoloco_p') else 'loco'
+        self.n_dropout = n_dropout
+        # Stored for MC dropout (ROADMAP Queue 1 item 1), which uses it.
+        self.p_dropout = p_dropout
         self.device = torch.device(device) if device is not None else default_device()
 
         if isinstance(model, (str, os.PathLike)):
@@ -118,13 +128,15 @@ class Loco:
             self.params, self.bn_state = params_from_numpy(*model, device=self.device)
         else:
             raise TypeError("model must be a checkpoint path or a (params, bn_state) tuple")
-        # The checkpoint is the source of truth for the architecture size.
+        # linear_size and n_stage are hints, as in the JAX package: the
+        # checkpoint is the source of truth for the architecture size.
         self.linear_size = int(self.params['w1']['w'].shape[1])
         self.n_stage = int(self.params['stages']['w1']['w'].shape[0])
         self.folded = fold_eval_params(self.params, self.bn_state, arch=self.arch)
         self.precision = serving_precision()
         # Weights are stored f32 (the JAX package casts to bf16 only on a TPU);
-        # under int8 the dyn8 weights are packed once, here.
+        # under int8 the dyn8 weights are packed once, here, for mono and the
+        # stereo pairing alike.
         self.mlp_weights = {'folded': FoldedLoco(self.folded, self.arch).to(self.device),
                             'packed_int8': None}
         if (self.precision == 'int8' and self.arch == 'loco'
@@ -155,39 +167,82 @@ class Loco:
             return extract_outputs_mono(raw)
         return extract_outputs(raw)
 
-    def forward(self, keypoints, kk):
-        """One image: keypoints (m, 3, 17), kk (3, 3) -> dict of numpy arrays
-        (m rows each; 'yaw' is a (pred, egocentric) pair), epi zeros."""
+    def _stereo_forward(self, kps_l, kps_r, r_mask, kk):
+        """An image batch on the device: left (B, m, 3, 17), right (B, r, 3,
+        17), r_mask (B, r) bool, kk (B, 3, 3) -> (the decoded output dict over
+        the B*m left poses, each with its chosen pairing, and the (B, m)
+        index of the right pose chosen). One MLP call over the B*m*r pairs;
+        the JAX package vmaps the same program over the images."""
+        b, m, r = kps_l.shape[0], kps_l.shape[1], kps_r.shape[1]
+        inputs, _ = preprocess_monstereo(kps_l, kps_r, kk)          # (B, m*r, 68)
+        raw = _mlp_forward(self.mlp_weights, inputs.reshape(b * m * r, -1), 'loco')
+        out4 = raw.reshape(b, m, r, raw.shape[-1])
+        # Padded right columns cannot win the aux argmax; the first maximum
+        # wins a tie, as in jnp.argmax.
+        aux = torch.where(r_mask[:, None, :], out4[..., -1],
+                          torch.full_like(out4[..., -1], -math.inf))
+        best = torch.argmax(aux, dim=2)                              # (B, m)
+        selected = torch.take_along_dim(out4, best[:, :, None, None], dim=2)[:, :, 0, :]
+        return extract_outputs(selected.reshape(b * m, -1)), best
+
+    def forward(self, keypoints, kk, keypoints_r=None):
+        """One image: keypoints (m, 3, 17), kk (3, 3), and for the stereo net
+        the right image's keypoints (r, 3, 17) (None or empty: the first left
+        pose stands in) -> dict of numpy arrays (m rows each; 'yaw' is a
+        (pred, egocentric) pair; stereo adds 'aux' and 'aux_idx', the right
+        pose chosen per left pose), epi zeros."""
         if keypoints is None or len(keypoints) == 0:
             return None
         kps = np.asarray(keypoints, np.float32)
         m = kps.shape[0]
         bm = _bucket(m)
-        self._count_dispatch(bm)
+        kk_dev = torch.as_tensor(np.asarray(kk, np.float32), device=self.device)
         with torch.inference_mode():
-            dic = _to_host(self._mono_forward(
-                torch.from_numpy(_pad_rows(kps, bm)).to(self.device),
-                torch.as_tensor(np.asarray(kk, np.float32), device=self.device)))
+            if self.net == 'monstereo':
+                if keypoints_r is None or len(keypoints_r) == 0:
+                    kps_r = kps[0:1].copy()
+                else:
+                    kps_r = np.asarray(keypoints_r, np.float32)
+                r = kps_r.shape[0]
+                br = _bucket(r)
+                r_mask = np.zeros((1, br), bool)
+                r_mask[0, :r] = True
+                self._count_dispatch(bm * br)
+                dic, best = self._stereo_forward(
+                    torch.from_numpy(_pad_rows(kps, bm)[None]).to(self.device),
+                    torch.from_numpy(_pad_rows(kps_r, br)[None]).to(self.device),
+                    torch.from_numpy(r_mask).to(self.device), kk_dev[None])
+                dic['aux_idx'] = best[0]
+            else:
+                self._count_dispatch(bm)
+                dic = self._mono_forward(torch.from_numpy(_pad_rows(kps, bm)).to(self.device),
+                                         kk_dev)
+            dic = _to_host(dic)
         dic_out = {k: (v[0][:m], v[1][:m]) if k == 'yaw' else v[:m]
                    for k, v in dic.items()}
         dic_out['epi'] = [0.] * m
         return dic_out
 
-    def forward_batch(self, keypoints_list, kk_list):
+    def forward_batch(self, keypoints_list, kk_list, keypoints_r_list=None):
         """Run many images in one dispatch (see forward_batch_async)."""
-        return self.forward_batch_async(keypoints_list, kk_list)()
+        return self.forward_batch_async(keypoints_list, kk_list, keypoints_r_list)()
 
-    def forward_batch_async(self, keypoints_list, kk_list):
+    def forward_batch_async(self, keypoints_list, kk_list, keypoints_r_list=None):
         """Launch one dispatch over many images; returns a zero-arg finalize()
         producing the per-image output dicts (None for an image without
-        detections), identical in layout to `forward`'s.
+        detections), identical in layout to `forward`'s, without 'aux_idx'.
+
+        keypoints_r_list (stereo net): per-image right keypoints (r_i, 3, 17);
+        an entry may be None or empty, and then the image's first left pose
+        stands in, as in `forward`.
 
         CUDA launches are asynchronous, so the caller can prepare the next
         chunk or write files before finalize() waits for this one. Images pad
         to shared detection buckets, as in the JAX package.
         """
-        if self.net not in ('monoloco_pp', 'monoloco_p'):
-            raise ValueError("forward_batch supports the monoloco_pp and monoloco_p nets")
+        if self.net not in ('monoloco_pp', 'monoloco_p', 'monstereo'):
+            raise ValueError("forward_batch supports the monoloco_pp, monoloco_p and "
+                             "monstereo nets")
         counts = [0 if k is None else len(k) for k in keypoints_list]
         n_img = len(keypoints_list)
         if n_img == 0:
@@ -201,10 +256,31 @@ class Loco:
             if counts[i]:
                 kps[i, :counts[i]] = np.asarray(k, np.float32)
             kks[i] = np.asarray(kk, np.float32)
-        self._count_dispatch(b_bucket * m_bucket)
+
+        def dev(arr):
+            return torch.from_numpy(arr).to(self.device)
+
         with torch.inference_mode():
-            dic_dev = self._mono_forward(torch.from_numpy(kps).to(self.device),
-                                         torch.from_numpy(kks).to(self.device))
+            if self.net == 'monstereo':
+                if keypoints_r_list is None:
+                    keypoints_r_list = [None] * n_img
+                counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
+                r_bucket = _bucket(max(max(counts_r), 1))
+                kps_r = np.zeros((b_bucket, r_bucket, 3, 17), np.float32)
+                r_mask = np.zeros((b_bucket, r_bucket), bool)
+                for i in range(n_img):
+                    if counts_r[i]:
+                        kps_r[i, :counts_r[i]] = np.asarray(keypoints_r_list[i], np.float32)
+                        r_mask[i, :counts_r[i]] = True
+                    elif counts[i]:
+                        # No right detections: the first left pose stands in.
+                        kps_r[i, 0] = kps[i, 0]
+                        r_mask[i, 0] = True
+                self._count_dispatch(b_bucket * m_bucket * r_bucket)
+                dic_dev, _ = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask), dev(kks))
+            else:
+                self._count_dispatch(b_bucket * m_bucket)
+                dic_dev = self._mono_forward(dev(kps), dev(kks))
 
         def finalize():
             dic = _to_host(dic_dev)
@@ -316,3 +392,30 @@ class Loco:
             dic_out['xyz_real'].append([float(x) for x in xyz_real.squeeze()])
         return dic_out
 
+
+def median_disparity(dic_out, keypoints, keypoints_r, mask=None):
+    """Ablation: replace the stereo net's depth with the median joint
+    disparity wherever a confident stereo match exists. dic_out['xyzd'] is
+    updated (numpy) and dic_out returned.
+
+    The winning right candidate per left keypoint comes from `mask` (an (m,
+    r) selection matrix, the form `filter_outputs` returns) or, when mask is
+    None, from dic_out['aux_idx'] as the engine's stereo `forward` returns
+    it. Host numpy, a copy of the JAX package's."""
+    keypoints = np.asarray(keypoints)
+    keypoints_r = np.asarray(keypoints_r)
+    if mask is None:
+        idx_right = np.asarray(dic_out['aux_idx']).reshape(-1)
+    else:
+        idx_right = np.argmax(np.asarray(mask), axis=1)
+    avg_disparities, _, _ = mask_joint_disparity(keypoints, keypoints_r)
+    xyzd = np.asarray(dic_out['xyzd']).copy()
+    for idx, aux in enumerate(np.asarray(dic_out['aux']).reshape(-1)):
+        if aux > 0.5:
+            idx_r = int(idx_right[idx])
+            z = BF / avg_disparities[idx][idx_r]
+            if 1 < z < 80:
+                xyzd[idx][2] = z
+                xyzd[idx][3] = np.linalg.norm(xyzd[idx][0:3])
+    dic_out['xyzd'] = xyzd
+    return dic_out

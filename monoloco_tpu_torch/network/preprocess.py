@@ -63,6 +63,24 @@ def preprocess_monoloco(keypoints, kk, zero_center=False):
     return xy1_all[..., 0:2].reshape(xy1_all.shape[:-2] + (-1,))
 
 
+def preprocess_monstereo(keypoints, keypoints_r, kk):
+    """All-vs-all stereo pairing: (..., m, 3, 17) x (..., r, 3, 17) ->
+    ((..., m*r, 68), clusters).
+
+    Row i*r+j is [inp_l_i, inp_l_i - inp_r_j]; `clusters` lists r per left
+    pose. With a leading image axis B (kk (B, 3, 3)) each image pairs its own
+    poses, as the JAX package's vmap over images does.
+    """
+    inp_l = preprocess_monoloco(keypoints, kk)              # (..., m, 34)
+    inp_r = preprocess_monoloco(keypoints_r, kk)            # (..., r, 34)
+    m, r = inp_l.shape[-2], inp_r.shape[-2]
+    lead = inp_l.shape[:-2]
+    left = inp_l[..., :, None, :].expand(lead + (m, r, 34))
+    diff = inp_l[..., :, None, :] - inp_r[..., None, :, :]
+    inputs = torch.cat([left, diff], dim=-1).reshape(lead + (m * r, 68))
+    return inputs, [r] * m
+
+
 def load_calibration(calibration, im_size, focal_length=5.7):
     """Build a 3x3 intrinsics matrix (list of lists).
 

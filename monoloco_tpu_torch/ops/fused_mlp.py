@@ -31,6 +31,14 @@ dyn8 and K5 take the calibration-free pack `pack_folded_weights_w8`: H x H
 layers as int8 with per-output-column scales, the input projection and heads
 as bf16.
 
+One more Pallas kernel lives outside the JAX package: the `kernel` of
+`tools/bench_roofline.py` `bench_chain_resident` (K6, the `pl.pallas_call`
+of `run_tile`), eight dependent bf16 layers y <- bf16(relu(y @ W_i)) with f32
+sums and no bias, a probe of the chip's ceiling. `relu_chain` runs it as
+eight launches of `csrc/wgmma_layer.cu`'s bf16 layer with its 'relu'
+epilogue and a zero bias, which is exactly the Pallas body; `relu_chain_plain`
+chains `layer_plain`.
+
 A wrapper runs the kernel's plain PyTorch version for a tensor on the CPU,
 and launches the kernel for a CUDA tensor, or raises; nothing falls back
 from the kernel to the plain version. The plain versions follow the float
@@ -59,7 +67,8 @@ from .quant import quant_weight, quantize_folded
 launches = {'dyn8_mlp': 0, 'int8_static_mlp': 0, 'w8_mlp': 0,
             'fused_mlp_bf16': 0, 'fused_mlp_f32': 0,
             'wgmma_layer_bf16': 0, 'wgmma_layer_w8': 0,
-            'wgmma_layer_f32': 0, 'wgmma_layer_dyn8': 0, 'wgmma_layer_static': 0}
+            'wgmma_layer_f32': 0, 'wgmma_layer_dyn8': 0, 'wgmma_layer_static': 0,
+            'relu_chain_bf16': 0}
 
 # The JAX package's VMEM budget for its resident flavour (int8: one byte per
 # element). On Hopper both flavours are one kernel and the stack is read
@@ -306,6 +315,17 @@ def layered_forward_plain(packed, x):
         bufs[dst] = layer_plain(bufs[src], wstack[i], bstack[i], epilogue,
                                 None if oscale is None else oscale[i], y)
     return heads_plain(bufs[1], bufs[0], waux, baux, wfin, bfin)
+
+
+def relu_chain_plain(x, ws):
+    """K6's chain on x (m, H) bf16: y <- bf16(relu(y @ W_i + 0)) for each
+    (H, H) bf16 W_i of ws, one `layer_plain` per layer (f32 sums, here
+    exact). Returns (m, H) bf16."""
+    zero = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    y = x
+    for w in ws:
+        y = layer_plain(y, w, zero, 'relu')
+    return y
 
 
 # --- the layered forwards of K1-f32 and dyn8, launch by launch -------------
@@ -862,6 +882,56 @@ def loco_layer(a, w, bias, epilogue, oscale=None, y=None):
         _raise_on(key, lib, _layer_call(lib, a, w, bias, epilogue, oscale, y, out, stream))
     launches[key] += 1
     return out
+
+
+def relu_chain(x, ws):
+    """K6, the roofline probe's resident chain (`tools/bench_roofline.py`
+    `bench_chain_resident`): y <- bf16(relu(y @ W_i)) for each W_i of ws, x
+    (m, H) bf16, each W_i (H, H) bf16, f32 sums, no bias. Returns (m, H)
+    bf16. A CPU tensor runs `relu_chain_plain`; a CUDA tensor launches
+    csrc/wgmma_layer.cu's bf16 layer once per W_i with the 'relu' epilogue
+    and a zero f32 bias, bf16(relu(acc + 0)), exactly the Pallas body;
+    counted once per call in launches['relu_chain_bf16']. Scratch: two (m,
+    H) bf16 buffers, the output one of them. Requires H % 128 == 0.
+
+    Why no kernel of its own: the Pallas kernel keeps a 512-row tile's
+    activations and all eight weights (16 MB at H = 1024) in VMEM and runs
+    every layer in one grid step. A block on the H100 has 227 KB of shared
+    memory: a 128-row bf16 tile at H = 1024 is 256 KB already, and a 64-row
+    tile would re-read the whole 16 MB stack from L2 once per 64 rows (33 GB
+    at 131072 rows). So the chain crosses device memory between layers, as
+    the layered MLP kernels do: x and each layer's output once (bf16, 256 MB
+    each at 131072 x 1024), each weight byte once per 128-row tile. The work
+    is bound by its products, 2.2 TFLOP at 131072 x 1024 x 8, 2.22 ms at the
+    bf16 peak, against 0.55 GB of inputs, output and weights (0.17 ms at
+    3.35 TB/s)."""
+    if x.device.type == 'cpu':
+        return relu_chain_plain(x, ws)
+    if x.device.type != 'cuda':
+        raise ValueError(f"relu_chain: no path for a tensor on {x.device}")
+    key = 'relu_chain_bf16'
+    m, hidden = x.shape
+    if hidden % 128 != 0:
+        raise ValueError(f"relu_chain kernel requires hidden % 128 == 0, got {hidden}")
+    if len(ws) == 0:
+        raise ValueError("relu_chain needs at least one layer")
+    expect = {'x': (x, torch.bfloat16, (m, hidden))}
+    expect.update({f'ws[{i}]': (w, torch.bfloat16, (hidden, hidden)) for i, w in enumerate(ws)})
+    _check_args(key, x, expect)
+    bufs = [torch.empty_like(x) for _ in range(min(len(ws), 2))]
+    if m == 0:
+        return bufs[0]
+    zero = torch.zeros(hidden, dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = _stream(x.device)
+        y = x
+        for i, w in enumerate(ws):
+            _raise_on(key, lib, _layer_call(lib, y, w, zero, 'relu', None, None, bufs[i % 2],
+                                            stream))
+            y = bufs[i % 2]
+    launches[key] += 1
+    return y
 
 
 def loco_layer_f32(a, w, bias, epilogue, y=None):

@@ -26,17 +26,22 @@ def synthetic_calibration_inputs(in_dim, n=2048, seed=1, device='cpu'):
     """The shared synthetic calibration batch of the a8 ablations: uniform
     keypoints over a KITTI-sized image through K^-1 (the JAX package's
     `synthetic_calibration_inputs`, same numpy draws). Stereo (in_dim 68)
-    needs `preprocess_monstereo`, which comes with the stereo slice."""
-    if in_dim == 68:
-        raise NotImplementedError(
-            "synthetic_calibration_inputs(68): stereo inputs need "
-            "preprocess_monstereo, which the port gains with the stereo slice "
-            "(ROADMAP Queue 1 item 5)")
-    from ..network.preprocess import preprocess_monoloco   # network imports ops
+    pairs side = round(sqrt(n)) left poses with as many right poses, all
+    against all: (side^2, 68)."""
+    # network imports ops
+    from ..network.preprocess import preprocess_monoloco, preprocess_monstereo
     rng = np.random.RandomState(seed)
-    kps = torch.from_numpy((rng.rand(n, 3, 17) * 300).astype(np.float32)).to(device)
     kk = torch.tensor(_KITTI_KK, dtype=torch.float32, device=device)
-    return preprocess_monoloco(kps, kk)
+
+    def draw(rows):
+        return torch.from_numpy((rng.rand(rows, 3, 17) * 300).astype(np.float32)).to(device)
+
+    if in_dim == 68:
+        side = max(2, int(round(n ** 0.5)))
+        kps_l = draw(side)
+        inputs, _ = preprocess_monstereo(kps_l, draw(side), kk)
+        return inputs
+    return preprocess_monoloco(draw(n), kk)
 
 
 def _div(a, b):

@@ -1,15 +1,20 @@
-"""Mono prediction: images + precomputed pifpaf poses -> `.monoloco.json`.
+"""Prediction: images + precomputed pifpaf poses -> `.monoloco.json`.
 
-Counterpart of `monoloco_tpu/predict.py` for `--mode mono --output_types
-json`. Per image: load the pifpaf annotations, build the calibration,
-forward the localization net, post-process (optionally against ground
-truth), write `out_<name>.monoloco.json`. More than two images forward in
-64-image chunks, one dispatch each, two deep: the device computes one chunk
-while the host writes the previous one.
+Counterpart of `monoloco_tpu/predict.py` for `--mode mono` and `--mode
+stereo` with `--output_types json`. Per image (per left/right pair in
+stereo): load the pifpaf annotations, build the calibration, forward the
+localization net, post-process (optionally against ground truth), write
+`out_<name>.monoloco.json` (the left image's name in stereo). More than two
+images (pairs) forward in 64-image (64-pair) chunks, one dispatch each, two
+deep: the device computes one chunk while the host writes the previous one.
+
+Stereo takes the images sorted, an even number of them, as consecutive
+(left, right) pairs, as the JAX package does.
 
 The image size comes from the PNG or JPEG header (stdlib), so Pillow is not
-needed. Figures, `--activities`, `--webcam`, stereo, MC dropout and running
-OpenPifPaf itself are not ported yet and are refused with a message.
+needed. Figures, `--activities`, `--webcam`, `--mode keypoints`, MC dropout
+and running OpenPifPaf itself are not ported yet and are refused with a
+message.
 """
 
 import glob
@@ -98,14 +103,20 @@ def factory_from_args(args):
         args.images += sorted(glob.glob(args.glob))
     if not args.images:
         raise SystemExit("no image files given")
-    if args.mode != 'mono':
+    if args.mode not in ('mono', 'stereo'):
         raise SystemExit(f"predict --mode {args.mode} is not ported to the torch "
-                         "package yet (ROADMAP Queue 1): use --mode mono")
+                         "package yet (ROADMAP Queue 1 item 2): use --mode mono or stereo")
+    if args.mode == 'stereo':
+        args.images = sorted(args.images)
+        if len(args.images) % 2:
+            raise SystemExit(f"Odd number of images in a stereo setting ({len(args.images)}): "
+                             "stereo takes (left, right) pairs")
     if args.activities:
-        raise SystemExit("predict --activities is not ported to the torch package yet")
+        raise SystemExit("predict --activities is not ported to the torch package yet "
+                         "(ROADMAP Queue 1 item 2)")
     if args.n_dropout > 0:
         raise SystemExit("predict --n_dropout (MC dropout) is not ported to the torch "
-                         "package yet (ROADMAP Queue 1 item 6)")
+                         "package yet (ROADMAP Queue 1 item 1)")
     if args.output_types != ['json']:
         raise SystemExit("the torch package writes --output_types json only; "
                          "figure outputs are not ported yet")
@@ -119,21 +130,24 @@ def predict(args):
     which MLP path the run took."""
     args = factory_from_args(args)
     device = 'cpu' if args.disable_cuda else None
-    net = Loco(model=args.model, mode='mono', net=args.net, device=device)
+    net = Loco(model=args.model, mode=args.mode, net=args.net, device=device,
+               n_dropout=args.n_dropout, p_dropout=args.dropout)
     if args.output_directory is not None:
         os.makedirs(args.output_directory, exist_ok=True)
-    if len(args.images) > 2 and net.net in ('monoloco_pp', 'monoloco_p'):
-        _predict_batched(args, net)
+    step = 2 if args.mode == 'stereo' else 1
+    if len(args.images) // step > 2 and net.net in ('monoloco_pp', 'monoloco_p', 'monstereo'):
+        _predict_batched(args, net, step)
     else:
-        _predict_per_image(args, net)
+        _predict_per_image(args, net, step)
     print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
           f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
           f"(precision {net.precision}, device {net.device})")
     return net
 
 
-def _load_one(args, image_path):
-    """Annotations, boxes, keypoints, calibration and ground truth of one image."""
+def _load_one(args, image_path, right_path=None):
+    """Boxes, keypoints, calibration and ground truth of one image, and the
+    keypoints of its right image (None without one)."""
     annotations = load_annotations(image_path, args)
     if args.json_output is not None:
         _dump_pifpaf_json(args, image_path, annotations)
@@ -145,17 +159,27 @@ def _load_one(args, image_path):
         kk = load_calibration(args.calibration, im_size, focal_length=args.focal_length)
         dic_gt = None
     boxes, keypoints = preprocess_pifpaf(annotations, im_size, enlarge_boxes=False)
-    return boxes, keypoints, kk, dic_gt
+    keypoints_r = None
+    if right_path is not None:
+        _, keypoints_r = preprocess_pifpaf(load_annotations(right_path, args), im_size)
+    return boxes, keypoints, keypoints_r, kk, dic_gt
 
 
-def _predict_per_image(args, net):
+def _pairs(args, step):
+    """(image, its right image or None) for each forward: consecutive pairs
+    in stereo (step 2), each image alone in mono."""
+    return [(args.images[i], args.images[i + 1] if step == 2 else None)
+            for i in range(0, len(args.images), step)]
+
+
+def _predict_per_image(args, net, step):
     timing = []
-    for cnt, image_path in enumerate(args.images):
-        boxes, keypoints, kk, dic_gt = _load_one(args, image_path)
+    for cnt, (image_path, right_path) in enumerate(_pairs(args, step)):
+        boxes, keypoints, keypoints_r, kk, dic_gt = _load_one(args, image_path, right_path)
         output_path = _output_path(args, image_path)
         print(f'{cnt} image {os.path.basename(image_path)} saved as {output_path}')
         start = time.time()
-        dic_out = net.forward(keypoints, kk)
+        dic_out = net.forward(keypoints, kk, keypoints_r=keypoints_r)
         fwd_time = (time.time() - start) * 1000
         timing.append(fwd_time)
         print(f"Forward time: {fwd_time:.0f} ms")
@@ -163,25 +187,26 @@ def _predict_per_image(args, net):
         _write_json(dic_out, output_path)
         print(f'Image {cnt}\n' + '-' * 120)
     timing_arr = np.array(timing)
-    print(f'Processed {len(timing)} images with an average time of '
+    print(f'Processed {len(timing) * step} images with an average time of '
           f'{int(timing_arr.mean())} ms and a std of {int(timing_arr.std())} ms')
 
 
-def _predict_batched(args, net):
-    """Forward 64-image chunks as one dispatch each, two deep: chunk s loads
-    and launches while chunk s-1 is still on the device."""
+def _predict_batched(args, net, step):
+    """Forward 64-image (stereo: 64-pair) chunks as one dispatch each, two
+    deep: chunk s loads and launches while chunk s-1 is still on the device."""
+    pairs = _pairs(args, step)
     cnt = 0
     since = time.time()
 
     def launch(s):
-        paths = args.images[s:s + CHUNK]
-        batch = [(p, *_load_one(args, p)) for p in paths]
-        fin = net.forward_batch_async([b[2] for b in batch], [b[3] for b in batch])
+        batch = [(p, *_load_one(args, p, r)) for p, r in pairs[s:s + CHUNK]]
+        fin = net.forward_batch_async([b[2] for b in batch], [b[4] for b in batch],
+                                      [b[3] for b in batch])
         return batch, fin
 
     def drain(batch, fin):
         nonlocal cnt
-        for (image_path, boxes, keypoints, kk, dic_gt), dic_fwd in zip(batch, fin()):
+        for (image_path, boxes, keypoints, _, kk, dic_gt), dic_fwd in zip(batch, fin()):
             output_path = _output_path(args, image_path)
             dic_out = net.post_process(dic_fwd, boxes, keypoints, kk, dic_gt)
             _write_json(dic_out, output_path)
@@ -189,7 +214,7 @@ def _predict_batched(args, net):
             cnt += 1
 
     pending = None
-    for s in range(0, len(args.images), CHUNK):
+    for s in range(0, len(pairs), CHUNK):
         launched = launch(s)
         if pending is not None:
             drain(*pending)
@@ -197,8 +222,8 @@ def _predict_batched(args, net):
     if pending is not None:
         drain(*pending)
     wall = time.time() - since
-    print(f'Processed {cnt} images in {wall:.2f} s '
-          f'({cnt / max(wall, 1e-9):.1f} images/s, batched forward)')
+    print(f'Processed {cnt * step} images in {wall:.2f} s '
+          f'({cnt * step / max(wall, 1e-9):.1f} images/s, batched forward)')
 
 
 def _output_path(args, image_path):

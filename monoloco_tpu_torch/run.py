@@ -32,13 +32,14 @@ def cli(argv=None):
     predict_parser.add_argument('--activities', nargs='+',
                                 choices=['raise_hand', 'social_distance'], default=[],
                                 help='activities to show (not ported)')
-    predict_parser.add_argument('--mode', help='mono (keypoints, stereo: not ported)',
+    predict_parser.add_argument('--mode', help='mono or stereo (keypoints: not ported)',
                                 default='mono')
-    predict_parser.add_argument('--model', help='path of MonoLoco model to load')
+    predict_parser.add_argument('--model', help='path of MonoLoco/MonStereo model to load')
     predict_parser.add_argument('--net', help='only to select older MonoLoco models')
     predict_parser.add_argument('--path_gt', help='path of json file with gt 3d localization')
     predict_parser.add_argument('--n_dropout', type=int, default=0,
                                 help='Epistemic uncertainty evaluation (not ported)')
+    predict_parser.add_argument('--dropout', type=float, default=0.2, help='dropout parameter')
     predict_parser.add_argument('--webcam', help='webcam streaming (not ported)',
                                 action='store_true')
     predict_parser.add_argument('--calibration', type=str, default='custom',

@@ -189,5 +189,5 @@ def test_launch_counters_cover_every_kernel():
                                  'fused_mlp_bf16', 'fused_mlp_f32',
                                  'wgmma_layer_bf16', 'wgmma_layer_w8',
                                  'wgmma_layer_f32', 'wgmma_layer_dyn8',
-                                 'wgmma_layer_static'}
+                                 'wgmma_layer_static', 'relu_chain_bf16'}
     assert sys.modules['monoloco_tpu_torch.ops'].launches is ops.launches

@@ -246,7 +246,8 @@ def test_cpu_tensors_never_count_a_launch(folded, calib):
     assert set(before) == {'dyn8_mlp', 'int8_static_mlp', 'w8_mlp',
                            'fused_mlp_bf16', 'fused_mlp_f32',
                            'wgmma_layer_bf16', 'wgmma_layer_w8',
-                           'wgmma_layer_f32', 'wgmma_layer_dyn8', 'wgmma_layer_static'}
+                           'wgmma_layer_f32', 'wgmma_layer_dyn8', 'wgmma_layer_static',
+                           'relu_chain_bf16'}
 
 
 def test_entries_reject_unaligned_hidden_and_other_devices(folded, calib):

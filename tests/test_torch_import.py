@@ -3,9 +3,9 @@ trainer checkpoints reference).
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
-CPU slice once (predict on a fixture copy, f32 and int8), runs each bench
-leg and ablation variant once at a toy size, and then asserts that neither
-jax nor optax is in sys.modules.
+CPU slice once (predict on fixture copies, mono and stereo, f32 and int8),
+runs each bench leg, ablation variant and the roofline tool's rows once at a
+toy size, and then asserts that neither jax nor optax is in sys.modules.
 """
 
 import os
@@ -43,14 +43,40 @@ _SCRIPT = textwrap.dedent("""
         net = run.main(args + ['-o', os.path.join(tmp, 'int8')])
         assert net.n_dispatches_int8 == 1
         assert len(os.listdir(os.path.join(tmp, 'int8'))) == 3
+    # predict --mode stereo on fixture pairs (the right poses shifted left by
+    # 20 px), per-image (1 pair) and batched (3 pairs), f32 then int8.
+    import json
+    from monoloco_tpu_torch.models import init_loco_params, save_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        stereo_model = os.path.join(tmp, 'stereo.pkl')
+        save_checkpoint(stereo_model, *init_loco_params(0, 68, 10, 128, 2))
+        with open(os.path.join(here, 'fixture_002282.pifpaf.json')) as f:
+            anns = json.load(f)
+        right = [{**a, 'keypoints': [v - 20 if i % 3 == 0 else v
+                                     for i, v in enumerate(a['keypoints'])]} for a in anns]
+        for i in range(3):
+            for side, poses in (('a', anns), ('b', right)):
+                dst = os.path.join(tmp, f'pair{i}{side}.png')
+                shutil.copy(os.path.join(here, 'fixture_002282.png'), dst)
+                with open(dst + '.pifpaf.json', 'w') as f:
+                    json.dump(poses, f)
+        pngs = sorted(os.path.join(tmp, f) for f in os.listdir(tmp) if f.endswith('.png'))
+        for precision, images in (('float32', pngs[:2]), ('float32', pngs), ('int8', pngs)):
+            os.environ['MONOLOCO_TPU_PRECISION'] = precision
+            out = os.path.join(tmp, f'{precision}{len(images)}')
+            net = run.main(['predict', *images, '--mode', 'stereo', '--model', stereo_model,
+                            '--calibration', 'kitti', '--disable-cuda', '-o', out])
+            assert net.n_dispatches == 1 and len(os.listdir(out)) == len(images) // 2
+            assert net.n_dispatches_int8 == (precision == 'int8')
     from monoloco_tpu_torch import bench
-    from monoloco_tpu_torch.tools import bench_pallas_int8
+    from monoloco_tpu_torch.tools import bench_pallas_int8, bench_roofline
     folded = bench.bench_folded(hidden=128, device='cpu')
     for leg in ('bf16', 'f32', 'int8', 'int8-a8', 'int8-xla'):
         bench.measure(folded, leg, batch=16, scan_iters=1, device='cpu')
     keypoints, kk = bench.bench_keypoints(16, 'cpu')
     for variant, mlp in bench_pallas_int8.build_mlps(folded).items():
         bench_pallas_int8.measure_variant(variant, mlp, keypoints, kk, 1)
+    assert len(bench_roofline.measure_rows(batch=16, peak_n=64, device='cpu', reps=1)) == 4
     print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax'))
     print('MODULES', len(names), 'LEAKED', leaked)
@@ -70,8 +96,10 @@ def test_port_imports_and_runs_without_jax():
     assert n_modules >= 19
     names = set(re.search(r'NAMES (.*)', res.stdout).group(1).split())
     assert {'monoloco_tpu_torch.bench', 'monoloco_tpu_torch.ops.quant',
+            'monoloco_tpu_torch.geometry.stereo',
             'monoloco_tpu_torch.tools.bench_pallas_int8',
-            'monoloco_tpu_torch.tools.bench_pallas_crossover'} <= names
+            'monoloco_tpu_torch.tools.bench_pallas_crossover',
+            'monoloco_tpu_torch.tools.bench_roofline'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

@@ -291,3 +291,97 @@ def test_tf32x3_layer_kernel_matches_plain_layer(cuda_device, hidden, epilogue):
         assert out.dtype == torch.float32 and out.shape == (m, hidden)
         assert bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
         assert bool(((y_k - y_p).abs() <= 1e-5 * (1 + y_p.abs())).all())
+
+
+def _pairing_rows(m, r, device, seed=0):
+    """The (m * r, 68) stereo inputs `preprocess_monstereo` makes from m left
+    and r right pifpaf-like poses over a KITTI image."""
+    from monoloco_tpu_torch.network import load_calibration, preprocess_monstereo
+    rng = np.random.default_rng(seed)
+
+    def poses(n):
+        kps = rng.uniform(0, 1, size=(n, 3, 17)).astype(np.float32)
+        kps[:, 0] = kps[:, 0] * 800 + 200
+        kps[:, 1] = kps[:, 1] * 200 + 80
+        return torch.from_numpy(kps).to(device)
+
+    kk = torch.tensor(load_calibration('kitti', (1238, 374)), device=device)
+    inputs, _ = preprocess_monstereo(poses(m), poses(r), kk)
+    return inputs.contiguous()
+
+
+def test_dyn8_at_68_to_10_on_stereo_pairing_rows(cuda_device):
+    """MonStereo's widths at hidden 1024, 3 stages, on the rows the stereo
+    engine feeds it (m x r pairings), under the int8 rule; rows bit-equal
+    whatever the batch around them."""
+    folded = _folded(68, 10, 1024, cuda_device)
+    packed = pack_folded_weights_w8(folded)
+    for m, r in ((7, 11), (32, 32), (64, 256)):
+        x = _pairing_rows(m, r, cuda_device, seed=m)
+        before = ops.launches['dyn8_mlp']
+        out = fused_loco_forward_dyn8_auto(packed, x)
+        torch.cuda.synchronize()
+        assert ops.launches['dyn8_mlp'] == before + 1
+        assert out.shape == (m * r, 10) and bool(torch.isfinite(out).all())
+        _check('int8', out, dyn8_forward_plain(packed, x), folded_forward(folded, x))
+    for n in (1, 77, 1024):
+        assert torch.equal(fused_loco_forward_dyn8_auto(packed, x[:n].contiguous()), out[:n])
+
+
+@pytest.mark.parametrize('hidden', [128, 256, 1024])
+def test_relu_chain_matches_plain(cuda_device, hidden):
+    """K6 (8 bf16 relu layers on csrc/wgmma_layer.cu) against
+    `relu_chain_plain`, under the bf16 rule: max abs 5e-2 and mean 5e-3 of
+    the output's, and no further from the f32 chain than 1.25x the plain
+    version (weights N(0, 2 / H), so the activations stay O(1))."""
+    rng = np.random.default_rng(hidden)
+    ws = [torch.from_numpy((rng.normal(size=(hidden, hidden)) * (2 / hidden) ** 0.5)
+                           .astype(np.float32)).to(cuda_device) for _ in range(8)]
+    ws_bf = [w.to(torch.bfloat16) for w in ws]
+    for m in (1, 77, 512):
+        x = _inputs(m, hidden, cuda_device, seed=m).to(torch.bfloat16)
+        before = ops.launches['relu_chain_bf16']
+        out = ops.relu_chain(x, ws_bf)
+        torch.cuda.synchronize()
+        assert ops.launches['relu_chain_bf16'] == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == (m, hidden)
+        ref = ops.relu_chain_plain(x, ws_bf).float()
+        f32 = x.float()
+        for w in ws_bf:
+            f32 = torch.relu(f32 @ w.float())
+        diff = (out.float() - ref).abs()
+        assert float(diff.max()) <= 5e-2 * float(ref.abs().max())
+        assert float(diff.mean()) <= 5e-3 * float(ref.abs().mean())
+        assert float((out.float() - f32).abs().mean()) <= 1.25 * float((ref - f32).abs().mean())
+
+
+def test_stereo_engine_int8_against_float32(cuda_device, monkeypatch):
+    """The stereo engine at MonStereo's widths under int8: a 16 x 32 pairing
+    dispatch (512 rows) routes to the dyn8 kernel; its distances stay within
+    the dyn8 budget (0.02 mean relative) of the float32 engine's where both
+    chose the same right pose."""
+    from monoloco_tpu_torch.network import Loco
+    params, bn = init_loco_params(2, 68, 10, 1024, 3)
+    params['w_fin']['b'][0:3] += torch.tensor([np.pi / 2, np.pi / 2, 15.0])
+    rng = np.random.default_rng(3)
+    kps = rng.uniform(0, 1, size=(16, 3, 17)).astype(np.float32)
+    kps[:, 0] = kps[:, 0] * 800 + 200
+    kps[:, 1] = kps[:, 1] * 200 + 80
+    kps_r = np.concatenate([kps, kps]).copy()
+    kps_r[:, 0] -= rng.uniform(10, 80, size=(32, 1)).astype(np.float32)
+    kk = [[718.3351, 0., 600.3891], [0., 718.3351, 181.5122], [0., 0., 1.]]
+    outs = {}
+    for precision in ('int8', 'float32'):
+        monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
+        net = Loco((params, bn), mode='stereo', device=cuda_device)
+        before = ops.launches['dyn8_mlp']
+        outs[precision] = net.forward(kps, kk, keypoints_r=kps_r)
+        torch.cuda.synchronize()
+        routed = precision == 'int8'
+        assert net.n_dispatches_int8 == int(routed)
+        assert ops.launches['dyn8_mlp'] == before + int(routed)
+    same = outs['int8']['aux_idx'] == outs['float32']['aux_idx']
+    assert same.mean() >= 0.5
+    d8, d32 = outs['int8']['d'][same], outs['float32']['d'][same]
+    assert np.isfinite(d8).all()
+    assert np.abs(d8 - d32).mean() / np.abs(d32).mean() < 0.02

@@ -106,13 +106,14 @@ def test_unported_commands_exit_nonzero(argv):
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--mode', 'stereo'], 'stereo'),
+    (['--mode', 'stereo'], 'stereo'),            # one image: stereo takes pairs
     (['--output_types', 'json', 'multi'], 'json only'),
     (['--activities', 'raise_hand'], 'activities'),
     (['--n_dropout', '5'], 'dropout'),
     (['--webcam'], 'webcam'),
 ])
 def test_unported_predict_options_are_refused(tmp_path, extra, match):
+    """Options the port does not take, and an odd number of stereo images."""
     imgs = _images(str(tmp_path / 'imgs'), 1)
     with pytest.raises(SystemExit, match=match):
         run.main(['predict', *imgs, '--model', MODEL, *extra])

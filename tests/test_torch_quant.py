@@ -58,8 +58,12 @@ def test_synthetic_calibration_inputs_match_jax():
 
 
 def test_synthetic_calibration_inputs_stereo_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match='stereo slice'):
-        tq.synthetic_calibration_inputs(68, n=64)
+    """The stereo slice is in: the 68-input batch is the JAX package's, the
+    8 x 8 all-vs-all pairing of its draws."""
+    ours = tq.synthetic_calibration_inputs(68, n=64).numpy()
+    ref = np.asarray(jq.synthetic_calibration_inputs(68, n=64))
+    assert ours.shape == ref.shape == (64, 68)
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-7)
 
 
 def test_int8_dense_exact_on_integer_grid():
