@@ -57,8 +57,25 @@ to the CPU):
  11. The roofline tool as a user runs it
     (`monoloco_tpu_torch.tools.bench_roofline`): its four JSON rows are
     printed, each checksum must be finite and `relu_chain` must launch.
+ 12. MC dropout and activities through the CLI entry point: phase 4's run
+    with `--n_dropout 10 --activities social_distance raise_hand`, at
+    float32 and at int8 (one main dispatch, dyn8 once under int8, and one
+    MC dispatch of 10 x 1024 rows in f32). stds_epi is finite and > 0 for
+    every detection and is the MC dispatch's epi; every other key equals
+    phase 4's run at the same precision bit for bit; int8's epi equals
+    float32's; social_distance and raising_hand equal their host
+    recomputation from the JSON; the card's epi is recomputed on the CPU
+    (plain f32) from the masks and uniforms the card drew, within 1e-4
+    relative. One MC dispatch is timed (CUDA events, median of 7).
+ 13. The same run at bf16 (K1-bf16 on the dispatch, no dyn8; dds_pred
+    within 0.02 mean relative of float32) and tensorfloat32 (no launch,
+    allow_tf32 off after), each deviation printed and each epi equal to
+    float32's; K1-bf16 timed at the 1024-row predict dispatch beside dyn8.
+ 14. `--mode keypoints --output_types json` builds no engine and launches
+    nothing; one float32 run under `--profile` gives the device's busy
+    share of predict (CUDA kernel time over the profiled wall).
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9 and 11, each with every count set to 0 just before it); a count is one
+8, 9, 11, 12 and 13, each with every count set to 0 just before it); a count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
 2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
 entry has its time, its plain version's, the bound (the larger of its
@@ -72,6 +89,7 @@ CUDA cores (67 TFLOP/s). The line before the last is the kernel report
 (JSON); the last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
 import os
 import shutil
@@ -119,11 +137,18 @@ BF16_VS_F32 = 1.25
 LAYER_TOL_OFF = 0.01
 # One 3xTF32 layer against its plain layer: within F32_LAYER_TOL (1 + |ref|).
 F32_LAYER_TOL = 1e-5
+PREDICT_IMAGES = 64        # phase 4: 64 copies of the fixture x 16 detections
 PREDICT_ROWS = 1024        # the predict dispatch of phase 4
 STEREO_IN, STEREO_OUT = 68, 10     # MonStereo
 STEREO_PAIRS = 64          # phase 9: 64 pairs x 16 x 16 poses, one 16384-row dispatch
 STEREO_PAIRINGS = ((7, 11), (32, 32), (128, 128))   # phase 10: 77, 1024, 16384 rows
 CHAIN_LAYERS = 8           # K6, the roofline tool's relu chain
+MC_DROPOUT = 10            # phases 12-13: MC passes, 10 x 1024 rows a dispatch
+MC_FLAGS = ('--n_dropout', str(MC_DROPOUT), '--activities', 'social_distance', 'raise_hand')
+ACTIVITY_ARGS = argparse.Namespace(threshold_prob=0.25, threshold_dist=2.5,
+                                   radii=(0.3, 0.5, 1))      # the CLI's defaults
+MC_TOL = 1e-4              # card epi vs the CPU's recomputation, max relative
+BF16_BUDGET = 0.02         # bf16 dds_pred vs float32, mean relative
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -271,7 +296,7 @@ def _zero_launches():
         launches[key] = 0
 
 
-def _run_predict(precision, model, img_dir, out_dir, mode='mono'):
+def _run_predict(precision, model, img_dir, out_dir, mode='mono', extra=()):
     """The predict CLI over img_dir's PNGs, with every launch count set to 0
     just before; returns (the engine, the dyn8 launches of the run)."""
     from monoloco_tpu_torch import run
@@ -280,7 +305,7 @@ def _run_predict(precision, model, img_dir, out_dir, mode='mono'):
     _zero_launches()
     net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', mode,
                     '--model', model, '--calibration', 'kitti',
-                    '--output_types', 'json', '-o', out_dir])
+                    '--output_types', 'json', '-o', out_dir, *extra])
     torch.cuda.synchronize()
     return net, launches['dyn8_mlp']
 
@@ -301,14 +326,29 @@ def _read_outputs(out_dir, n, keys=('dds_pred', 'stds_ale', 'confs', 'xyz_pred',
     return {key: np.concatenate(v) for key, v in out.items()}
 
 
+def _read_dicts(out_dir, n):
+    """The n .monoloco.json dicts of out_dir, in file name order."""
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith('.monoloco.json'))
+    check(len(files) == n, f"{len(files)} .monoloco.json files in {out_dir}, expected {n}")
+    dicts = []
+    for f in files:
+        with open(os.path.join(out_dir, f)) as fh:
+            dicts.append(json.load(fh))
+    return dicts
+
+
+def _main_model(tmp):
+    return os.path.join(tmp, f'loco_h{HIDDEN}.pkl')
+
+
 def phase_main_path(params, bn_state, tmp):
     from monoloco_tpu_torch.models import save_checkpoint
     print("== phase 4: main path, python -m monoloco_tpu_torch.run predict", flush=True)
-    model = os.path.join(tmp, f'loco_h{HIDDEN}.pkl')
+    model = _main_model(tmp)
     save_checkpoint(model, params, bn_state, meta={'seed': SEED})
     img_dir = os.path.join(tmp, 'images')
     os.makedirs(img_dir)
-    for i in range(64):
+    for i in range(PREDICT_IMAGES):
         dst = os.path.join(img_dir, f'im{i:03d}.png')
         shutil.copy(FIXTURE, dst)
         shutil.copy(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json'),
@@ -321,10 +361,10 @@ def phase_main_path(params, bn_state, tmp):
           flush=True)
     check(net.n_dispatches_int8 > 0, "no dispatch routed to int8")
     check(n_launch > 0, "the main path never launched the dyn8 kernel")
-    d8 = _read_outputs(os.path.join(tmp, 'out_int8'), 64)['dds_pred']
+    d8 = _read_outputs(os.path.join(tmp, 'out_int8'), PREDICT_IMAGES)['dds_pred']
     net32, n32 = _run_predict('float32', model, img_dir, os.path.join(tmp, 'out_f32'))
     check(net32.n_dispatches_int8 == 0 and n32 == 0, "float32 run touched the kernel")
-    d32 = _read_outputs(os.path.join(tmp, 'out_f32'), 64)['dds_pred']
+    d32 = _read_outputs(os.path.join(tmp, 'out_f32'), PREDICT_IMAGES)['dds_pred']
     rel = float(np.abs(d8 - d32).mean() / np.abs(d32).mean())
     print(f"dds_pred int8 vs float32: mean relative deviation {rel:.3e} "
           f"(budget {DYN8_BUDGET}) over {d8.size} detections")
@@ -950,6 +990,225 @@ def phase_roofline():
     return dict(launches)
 
 
+class _McSpy:
+    """Within the block, records each MC dispatch of the engine: (the
+    engine, its keypoints and calibrations on the card, the draws it used,
+    the epi it returned)."""
+
+    def __enter__(self):
+        from monoloco_tpu_torch.network import Loco
+        self.calls, self.real = [], Loco.mc_epistemic
+        calls, real = self.calls, self.real
+
+        def mc_epistemic(net, kps, kk, mc=None):
+            epi = real(net, kps, kk, mc)
+            calls.append((net, kps, kk, net.mc_last, epi))
+            return epi
+
+        Loco.mc_epistemic = mc_epistemic
+        return self
+
+    def __exit__(self, *exc):
+        from monoloco_tpu_torch.network import Loco
+        Loco.mc_epistemic = self.real
+
+
+def _check_mc_outputs(out_dir, ref_dir, epi):
+    """The JSON of an MC + activities run against the phase 4 run at the
+    same precision (ref_dir): stds_epi finite, > 0 and the dispatch's epi
+    (B, m) exactly; every other key of ref_dir bit for bit; social_distance
+    and raising_hand equal to a host recomputation from the JSON. Returns
+    (the dicts, the number of detections flagged by each rule)."""
+    from monoloco_tpu_torch.activity import is_raising_hand
+    from monoloco_tpu_torch.network import Loco
+    dicts, refs = _read_dicts(out_dir, PREDICT_IMAGES), _read_dicts(ref_dir, PREDICT_IMAGES)
+    epi = epi.cpu().numpy()
+    flagged = [0, 0]
+    for i, (dic, ref) in enumerate(zip(dicts, refs)):
+        e = np.asarray(dic['stds_epi'], np.float64)
+        check(e.size == len(ref['dds_pred']) and np.isfinite(e).all() and (e > 0).all(),
+              f"{out_dir} image {i}: stds_epi not finite and > 0 for every detection")
+        check(dic['stds_epi'] == epi[i, :e.size].tolist(),
+              f"{out_dir} image {i}: stds_epi is not the MC dispatch's epi")
+        for key in ref:
+            check(key == 'stds_epi' or dic[key] == ref[key],
+                  f"{out_dir} image {i}: {key} differs from the run without MC")
+        sd = Loco.social_distance({k: dic[k] for k in ('angles', 'dds_pred', 'stds_ale',
+                                                       'xyz_pred')}, ACTIVITY_ARGS)
+        check(dic['social_distance'] == sd['social_distance'],
+              f"{out_dir} image {i}: social_distance differs from its host recomputation")
+        check(dic['raising_hand'] == [is_raising_hand(kp) for kp in dic['uv_kps']],
+              f"{out_dir} image {i}: raising_hand differs from its host recomputation")
+        flagged[0] += sum(dic['social_distance'])
+        flagged[1] += sum(v is not None for v in dic['raising_hand'])
+    return dicts, flagged
+
+
+def _median_ms(fn, reps=7):
+    """Median of `reps` CUDA-event times of fn() after two warm-up calls;
+    returns (median, min, max)."""
+    with torch.inference_mode():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        v = [_time_ms(lambda _: fn(), None) for _ in range(reps)]
+    return statistics.median(v), min(v), max(v)
+
+
+def phase_mc(tmp):
+    """predict with MC dropout and both activities, at float32 and int8,
+    against phase 4's runs; the card's epi against the CPU's recomputation
+    from the card's own draws; one MC dispatch timed. Returns (the dicts and
+    the epi of the float32 run, the launch counts of the int8 run)."""
+    from monoloco_tpu_torch.network import Loco
+    from monoloco_tpu_torch.ops import launches
+    print(f"== phase 12: main path with --n_dropout {MC_DROPOUT} --activities social_distance "
+          f"raise_hand, {PREDICT_IMAGES} images", flush=True)
+    model, img_dir = _main_model(tmp), os.path.join(tmp, 'images')
+    epis = {}
+    for precision, ref in (('float32', 'out_f32'), ('int8', 'out_int8')):
+        out_dir = os.path.join(tmp, f'mc_{precision}')
+        with _McSpy() as spy:
+            t0 = time.perf_counter()
+            net, n_dyn8 = _run_predict(precision, model, img_dir, out_dir, extra=MC_FLAGS)
+            wall = time.perf_counter() - t0
+        ran = {k: n for k, n in launches.items() if n}
+        print(f"{precision} run: {wall:.2f} s wall, dispatches {net.n_dispatches}, MC "
+              f"dispatches {len(spy.calls)}, kernel launches {ran}", flush=True)
+        check(len(spy.calls) == 1 and net.n_dispatches == 1, "expected one main and one MC "
+              f"dispatch for the {PREDICT_IMAGES} images")
+        check(ran == ({'dyn8_mlp': 1} if precision == 'int8' else {}),
+              f"{precision} MC run: launches {ran}")
+        _, kps, kk, (masks, u), epi = spy.calls[0]
+        check(masks[0].shape == (MC_DROPOUT, kps.shape[1], HIDDEN), "MC masks' shape")
+        dicts, flagged = _check_mc_outputs(out_dir, os.path.join(tmp, ref), epi)
+        print(f"{precision}: stds_epi of {sum(len(d['stds_epi']) for d in dicts)} detections "
+              f"finite and > 0 (mean {float(epi.mean()):.4e} m); every other key equals phase 4 "
+              f"bit for bit; social_distance flags {flagged[0]}, raised hands {flagged[1]}, "
+              f"each equal to its host recomputation", flush=True)
+        epis[precision] = epi
+        if precision == 'float32':
+            f32_dicts, f32_call = dicts, spy.calls[0]
+        else:
+            int8_counts = ran
+    check(torch.equal(epis['int8'], epis['float32']),
+          "MC under int8 is not the float32 MC (it must stay f32)")
+    print("int8: epi equals float32's bit for bit (MC stays f32; the main dispatch ran dyn8)")
+
+    net, kps, kk, (masks, u), epi = f32_call
+    cpu = Loco(model=model, mode='mono', device='cpu', n_dropout=MC_DROPOUT)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        epi_cpu = cpu.mc_epistemic(kps.cpu(), kk.cpu(), ([m.cpu() for m in masks], u.cpu()))
+    rel = float(((epi.cpu() - epi_cpu).abs() / epi_cpu.abs()).max())
+    print(f"card epi against the CPU's plain f32 recomputation from the card's masks and "
+          f"uniforms ({time.perf_counter() - t0:.1f} s on the CPU): max relative difference "
+          f"{rel:.3e} (tolerance {MC_TOL})", flush=True)
+    check(rel <= MC_TOL, "the card's epi disagrees with the CPU's recomputation")
+
+    rows = MC_DROPOUT * kps.shape[0] * kps.shape[1]
+    for what, fn in (('draws + forward', lambda: net.mc_epistemic(kps, kk)),
+                     ('forward on given draws', lambda: net.mc_epistemic(kps, kk, (masks, u)))):
+        med, lo, hi = _median_ms(fn)
+        print(f"one MC dispatch ({what}), {MC_DROPOUT} passes x {kps.shape[0]} x "
+              f"{kps.shape[1]} = {rows} rows at hidden {HIDDEN}, f32: median {med:.4f} ms over "
+              f"7 runs (min {lo:.4f}, max {hi:.4f})")
+    return f32_dicts, epis['float32'], int8_counts
+
+
+def phase_precisions(tmp, f32_dicts, f32_epi, dyn8):
+    """The same CLI run at bf16 (K1-bf16 on every dispatch, no dyn8) and
+    tensorfloat32 (no kernel, TF32 around the MLP only), each against
+    float32; K1-bf16 timed at the predict dispatch beside dyn8. Returns the
+    launch counts of the bf16 run."""
+    from monoloco_tpu_torch.ops import fused_loco_forward, launches
+    print(f"== phase 13: main path at bf16 and tensorfloat32, {PREDICT_IMAGES} images",
+          flush=True)
+    model, img_dir = _main_model(tmp), os.path.join(tmp, 'images')
+    d32 = np.concatenate([d['dds_pred'] for d in f32_dicts])
+    counts = {}
+    for precision in ('bf16', 'tensorfloat32'):
+        out_dir = os.path.join(tmp, f'mc_{precision}')
+        with _McSpy() as spy:
+            t0 = time.perf_counter()
+            net, _ = _run_predict(precision, model, img_dir, out_dir, extra=MC_FLAGS)
+            wall = time.perf_counter() - t0
+        ran = {k: n for k, n in launches.items() if n}
+        print(f"{precision} run: {wall:.2f} s wall, precision {net.precision}, kernel launches "
+              f"{ran}", flush=True)
+        if precision == 'bf16':
+            check(ran.get('fused_mlp_bf16', 0) > 0 and 'dyn8_mlp' not in ran,
+                  f"bf16 run: launches {ran}, expected fused_mlp_bf16 and no dyn8")
+            counts = ran
+            packed_bf16 = net.mlp_weights['packed_bf16']
+        else:
+            check(ran == {}, f"tensorfloat32 run launched {ran}")
+            check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on after the run")
+        check(len(spy.calls) == 1 and torch.equal(spy.calls[0][4], f32_epi),
+              f"{precision}: MC epi is not float32's (it must stay f32)")
+        dicts = _read_dicts(out_dir, PREDICT_IMAGES)
+        d = np.concatenate([x['dds_pred'] for x in dicts])
+        check(np.isfinite(d).all() and d.shape == d32.shape, f"{precision}: bad dds_pred")
+        rel = float(np.abs(d - d32).mean() / np.abs(d32).mean())
+        print(f"{precision}: dds_pred against float32, mean relative deviation {rel:.3e} over "
+              f"{d.size} detections (max abs {float(np.abs(d - d32).max()):.3e} m); epi equals "
+              f"float32's bit for bit", flush=True)
+        if precision == 'bf16':
+            check(rel < BF16_BUDGET, f"bf16 dds_pred outside {BF16_BUDGET} of float32")
+    x = make_inputs(PREDICT_ROWS, 'cuda')
+    entry, _, packed = dyn8
+    for name, fn in (('fused_mlp_bf16', lambda: fused_loco_forward(None, x, packed=packed_bf16)),
+                     ('dyn8_mlp', lambda: entry(packed, x))):
+        med, lo, hi = _median_ms(fn)
+        print(f"{name} at {PREDICT_ROWS} rows (the predict dispatch): median {med:.4f} ms over "
+              f"7 runs (min {lo:.4f}, max {hi:.4f})")
+    return counts
+
+
+def phase_keypoints_profile(tmp):
+    """--mode keypoints builds no engine and launches nothing; a float32
+    run under --profile gives the device's busy share of predict."""
+    from monoloco_tpu_torch import predict, run
+    from monoloco_tpu_torch.ops import launches
+    print("== phase 14: --mode keypoints, and predict under --profile", flush=True)
+    img_dir = os.path.join(tmp, 'images')
+    out_dir = os.path.join(tmp, 'keypoints')
+    _zero_launches()
+    real_loco = predict.Loco
+
+    def no_engine(*args, **kwargs):
+        fail("--mode keypoints built an engine")
+
+    predict.Loco = no_engine
+    try:
+        net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode',
+                        'keypoints', '--output_types', 'json', '-o', out_dir])
+    finally:
+        predict.Loco = real_loco
+    dicts = _read_dicts(out_dir, PREDICT_IMAGES)
+    ran = {k: n for k, n in launches.items() if n}
+    check(net is None and ran == {} and all(d == {} for d in dicts),
+          f"--mode keypoints: engine {net}, launches {ran}")
+    print(f"keypoints: {len(dicts)} JSON files, each {{}}; no engine, no launch")
+
+    prof_dir = os.path.join(tmp, 'profile')
+    _run_predict('float32', _main_model(tmp), img_dir, os.path.join(tmp, 'out_prof'),
+                 extra=('--profile', prof_dir))
+    with open(os.path.join(prof_dir, 'predict_trace.json')) as f:
+        events = [e for e in json.load(f)['traceEvents'] if 'ts' in e and 'dur' in e]
+    check(events, "the predict trace holds no events")
+    wall = max(float(e['ts']) + float(e['dur']) for e in events) - min(float(e['ts'])
+                                                                       for e in events)
+    busy = {cat: sum(float(e['dur']) for e in events if e.get('cat') == cat)
+            for cat in ('kernel', 'gpu_memcpy', 'gpu_memset')}
+    n_kernels = sum(e.get('cat') == 'kernel' for e in events)
+    check(n_kernels > 0, "the profiler saw no CUDA kernel in predict")
+    print(f"predict float32 under --profile: {wall / 1e3:.2f} ms profiled wall, {n_kernels} CUDA "
+          f"kernels, {busy['kernel'] / 1e3:.3f} ms of kernel time: device busy share "
+          f"{busy['kernel'] / wall:.4%} (copies {busy['gpu_memcpy'] / 1e3:.3f} ms, memsets "
+          f"{busy['gpu_memset'] / 1e3:.3f} ms)")
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
 
@@ -1013,8 +1272,9 @@ def main():
     packed = kernels['dyn8_mlp'][2]
     max_err = {'dyn8_mlp': phase_kernel(packed, M_ROWS)}
     phase_rows(packed)
-    with tempfile.TemporaryDirectory() as tmp:
-        main_launches = phase_main_path(params, bn_state, tmp)
+    # Phase 4's checkpoint, images and outputs, which phases 12-14 reuse.
+    main_dir = tempfile.TemporaryDirectory()
+    main_launches = phase_main_path(params, bn_state, main_dir.name)
     phase_reference()
     med = phase_times(kernels, folded, smi)
     s_params, s_bn = init_loco_params(SEED + 2, 68, 10, HIDDEN, STAGES)
@@ -1034,6 +1294,13 @@ def main():
     max_err['dyn8_mlp'] = max(max_err['dyn8_mlp'],
                               phase_dyn8_stereo(pack_folded_weights_w8(m_folded), m_folded))
     main_launches['relu_chain_bf16'] = phase_roofline()['relu_chain_bf16']
+    f32_dicts, f32_epi, mc_launches = phase_mc(main_dir.name)
+    for counts in (mc_launches, phase_precisions(main_dir.name, f32_dicts, f32_epi,
+                                                 kernels['dyn8_mlp'])):
+        for key, n in counts.items():
+            main_launches[key] = main_launches.get(key, 0) + n
+    phase_keypoints_profile(main_dir.name)
+    main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']
     missing = [k for k in names if main_launches.get(k, 0) == 0]

@@ -3,6 +3,10 @@ from .loco import (
     loco_forward,
     fold_eval_params,
     folded_forward,
+    folded_forward_mc,
+    dropout_masks,
+    n_dropout_sites,
+    round_bf16,
     FoldedLoco,
 )
 from .checkpoint import (

@@ -140,21 +140,72 @@ def fold_eval_params(params, bn_state, arch='loco'):
     return folded
 
 
-def folded_forward(folded, x, arch='loco'):
-    """Plain f32 folded eval forward (`torch.matmul`, as the JAX package leaves
-    this path to XLA)."""
-    y = torch.relu(_dense(folded['l0'], x))
+def round_bf16(t):
+    """t rounded to bf16 and back to f32 (nearest, ties to even)."""
+    return t.to(torch.bfloat16).float()
+
+
+def _folded_chain(folded, x, arch, dense, act):
+    """The folded net with `dense(layer, a)` for each affine layer and
+    `act(h)` for each ReLU (and, for MC dropout, the dropout after it)."""
+    y = act(dense(folded['l0'], x))
     st = folded['stages']
     for i in range(st['a']['w'].shape[0]):
-        h = torch.relu(y @ st['a']['w'][i] + st['a']['b'][i])
-        h = torch.relu(h @ st['b']['w'][i] + st['b']['b'][i])
+        h = act(dense({'w': st['a']['w'][i], 'b': st['a']['b'][i]}, y))
+        h = act(dense({'w': st['b']['w'][i], 'b': st['b']['b'][i]}, h))
         y = y + h
     if arch == 'monoloco':
-        return _dense(folded['w2'], y)
-    y2 = _dense(folded['w2'], y)
-    aux = _dense(folded['w_aux'], y2)
-    fin = _dense(folded['w_fin'], torch.relu(_dense(folded['w3f'], y2)))
-    return torch.cat([fin, aux], dim=1)
+        return dense(folded['w2'], y)
+    y2 = dense(folded['w2'], y)
+    aux = dense(folded['w_aux'], y2)
+    fin = dense(folded['w_fin'], act(dense(folded['w3f'], y2)))
+    return torch.cat([fin, aux], dim=-1)
+
+
+def folded_forward(folded, x, arch='loco', operand=None):
+    """Plain f32 folded eval forward (`torch.matmul`, as the JAX package leaves
+    this path to XLA). With `operand` (e.g. `round_bf16`), each product's
+    activation and weight pass through it first: with bf16 rounding the
+    products are exact in f32 and summed in f32 (TF32 off), the arithmetic
+    of the bfloat16 matmul precision; biases and the residual stay f32."""
+    if operand is None:
+        return _folded_chain(folded, x, arch, _dense, torch.relu)
+    return _folded_chain(folded, x, arch,
+                         lambda p, a: operand(a) @ operand(p['w']) + p['b'], torch.relu)
+
+
+def n_dropout_sites(n_stage, arch='loco'):
+    """Dropout call sites of one MC pass, in forward order: after the input
+    layer, two per stage, and for 'loco' after w3 (2S + 2; 'monoloco' 2S +
+    1), as `_dropout` is called in the JAX package's `loco_forward` and
+    `monoloco_forward`."""
+    return 2 * n_stage + (2 if arch == 'loco' else 1)
+
+
+def dropout_masks(n_passes, rows, hidden, n_sites, p_dropout, device, seed=0):
+    """Keep-masks for MC dropout: `n_sites` bool tensors (n_passes, rows,
+    hidden), True with probability 1 - p_dropout, drawn site by site from a
+    torch.Generator on `device` seeded with `seed` (made afresh on every
+    call, so a call is reproducible on one device; it does not reproduce
+    JAX's key tree)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.rand((n_passes, rows, hidden), generator=gen, device=device) < 1.0 - p_dropout
+            for _ in range(n_sites)]
+
+
+def folded_forward_mc(folded, x, masks, p_dropout, arch='loco'):
+    """The MC-dropout forward on the folded net: BN in eval mode (folded,
+    exact in real arithmetic), and after each ReLU of a dropout site
+    `where(keep, h / (1 - p), 0)`, as the JAX package's `_dropout`. x (...,
+    rows, in) f32; `masks` in `n_dropout_sites` order, each (n, ..., rows,
+    H) or broadcastable to it, which puts the passes on a leading axis.
+    Returns (n, ..., rows, out), [fin, aux] for 'loco'."""
+    sites = iter(masks)
+
+    def relu_drop(h):
+        return torch.where(next(sites), torch.relu(h) / (1.0 - p_dropout), 0.0)
+
+    return _folded_chain(folded, x, arch, _dense, relu_drop)
 
 
 def _flatten(tree, prefix=''):

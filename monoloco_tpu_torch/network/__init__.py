@@ -8,6 +8,8 @@ from .preprocess import (
 )
 from .decode import (
     unnormalize_bi,
+    laplace_sampling,
+    laplace_uniforms,
     extract_outputs,
     extract_outputs_mono,
     cluster_outputs,

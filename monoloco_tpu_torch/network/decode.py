@@ -17,8 +17,32 @@ _TASK_SLICES = {
 
 
 def unnormalize_bi(loc):
-    """(m, 2) [mu, log-spread] -> absolute Laplace spread b = exp(b_hat) * mu."""
-    return torch.exp(loc[:, 1:2]) * loc[:, 0:1]
+    """(..., 2) [mu, log-spread] -> absolute Laplace spread b = exp(b_hat) * mu,
+    (..., 1)."""
+    return torch.exp(loc[..., 1:2]) * loc[..., 0:1]
+
+
+def laplace_uniforms(n_samples, m, device, seed=1):
+    """The uniforms of `laplace_sampling`: (n_samples, m) f32 in [-0.5 +
+    1e-7, 0.5), from a torch.Generator on `device` seeded with `seed` on
+    every call (the JAX package reseeds PRNGKey(1) on every call, so every
+    call draws the same uniforms; torch cannot reproduce JAX's stream)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = -0.5 + 1e-7
+    u = torch.rand((n_samples, m), generator=gen, device=device)
+    return torch.clamp(lo + u * (0.5 - lo), min=lo)
+
+
+def laplace_sampling(outputs, n_samples, seed=1, u=None):
+    """Sample Laplace(mu=outputs[..., 0], b=|outputs[..., 1]|): (..., m, 2)
+    -> (..., n_samples, m). `u` (n_samples, m) are the uniforms, shared by
+    every leading index; without it they come from `laplace_uniforms`."""
+    outputs = outputs.float()
+    mu, bi = outputs[..., 0], torch.abs(outputs[..., 1])
+    if u is None:
+        u = laplace_uniforms(n_samples, mu.shape[-1], outputs.device, seed)
+    return (mu[..., None, :]
+            - bi[..., None, :] * torch.sign(u) * torch.log1p(-2.0 * torch.abs(u)))
 
 
 def extract_outputs(outputs):

@@ -5,12 +5,19 @@ Per dispatch, on the engine's device: K^-1 keypoint normalization (for
 stereo, the all-vs-all pairing of left and right poses), the BN-folded
 residual MLP, for stereo the choice of each left pose's right partner by the
 aux logit, and the physical decode. Everything after (ground truth matching,
-output dict assembly) is host numpy on a handful of detections.
+output dict assembly, the activity rules) is host numpy on a handful of
+detections.
 
-MLP routing (`_mlp_forward`), as in the JAX package:
+MLP routing (`_mlp_forward`), as in the JAX package off the TPU:
  - default / float32: the plain f32 folded forward (`FoldedLoco`, torch.matmul);
  - int8: the fused dynamic-int8 kernel (ops/fused_mlp.py) for dispatches of
-   at least `_INT8_MIN_ROWS` padded rows, the f32 path below that.
+   at least `_INT8_MIN_ROWS` padded rows, the f32 path below that;
+ - bfloat16: the K1-bf16 kernel (`fused_loco_forward` on a bf16 pack made
+   once at init) for every dispatch of a Loco net with hidden % 128 == 0;
+   the legacy nets and other widths run `folded_forward` on bf16-rounded
+   operands (exact products, f32 sums), the same function without a kernel;
+ - tensorfloat32: the f32 folded forward with TF32 on around the MLP only.
+K^-1 and decode stay f32 under every precision.
 `_INT8_MIN_ROWS = 512` is INHERITED from the JAX package, where it was the
 measured dyn8/bf16 crossover on a TPU v5e. It has not been measured on the
 H100 (MONOLOCO_TPU_INT8_MIN_ROWS overrides it).
@@ -23,8 +30,20 @@ needs them to bound recompiles, and here routing reads the padded row count,
 so both engines route a given batch the same way. Stereo pads m and r to
 their buckets separately; padded right columns cannot win the aux argmax.
 
-Not ported yet, and refused with NotImplementedError: MC-dropout epistemic
-passes (ROADMAP Queue 1 item 1), device meshes (item 9).
+MC-dropout epistemic uncertainty (`n_dropout > 0`, mono nets; stereo keeps
+epi at zeros, as in the JAX package) is one more dispatch after the main
+one: the n_dropout passes stacked on a leading axis through
+`folded_forward_mc` (the folded f32 net on the device, TF32 off, under every
+precision), 100 Laplace samples a pass and the std over all of them. The
+keep-masks and the uniforms come from torch.Generators on the device made
+afresh on every dispatch (seed 0 and 1): the same for every pass's uniforms
+and, in a batch, for every image, as the JAX package's fixed keys and its
+vmap over images make them. `forward`, `forward_batch` and
+`forward_batch_async` also take them injected (`mc=(masks, u)`), and
+`mc_last` keeps the last ones drawn.
+
+Not ported yet, and refused with NotImplementedError: device meshes
+(ROADMAP Queue 1 item 9).
 """
 
 import math
@@ -34,16 +53,21 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..activity import is_raising_hand, social_interactions
 from ..geometry import get_iou_matches, reorder_matches
 from ..geometry.host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
 from ..geometry.stereo import BF, mask_joint_disparity
-from ..models import (FoldedLoco, fold_eval_params, folded_forward, load_checkpoint,
-                      params_from_numpy)
-from ..ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
-from ..utils.precision import serving_precision
-from .decode import extract_outputs, extract_outputs_mono, unnormalize_bi
+from ..models import (FoldedLoco, dropout_masks, fold_eval_params, folded_forward,
+                      folded_forward_mc, load_checkpoint, n_dropout_sites, params_from_numpy,
+                      round_bf16)
+from ..ops import (fused_loco_forward, fused_loco_forward_dyn8_auto, pack_folded_weights,
+                   pack_folded_weights_w8)
+from ..utils.precision import serve_storage, serving_precision, tf32_matmuls
+from .decode import (extract_outputs, extract_outputs_mono, laplace_sampling,
+                     laplace_uniforms, unnormalize_bi)
 from .preprocess import preprocess_monoloco, preprocess_monstereo
 
+N_SAMPLES = 100
 _INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '512'))
 
 
@@ -57,12 +81,23 @@ def _int8_routes(weights, n_rows):
 
 def _mlp_forward(weights, inputs, arch):
     """Eval MLP. `weights` is Loco's {'folded': FoldedLoco, 'packed_int8':
-    dyn8 weights or None}, or a bare folded dict from direct callers."""
-    if isinstance(weights, dict) and 'folded' in weights:
-        if _int8_routes(weights, inputs.shape[0]):
-            return fused_loco_forward_dyn8_auto(weights['packed_int8'], inputs)
-        return weights['folded'](inputs)
-    return folded_forward(weights, inputs, arch=arch)
+    dyn8 weights or None, 'packed_bf16': K1-bf16 weights or None,
+    'precision': the canonical precision}, or a bare folded dict from direct
+    callers (plain f32)."""
+    if not (isinstance(weights, dict) and 'folded' in weights):
+        return folded_forward(weights, inputs, arch=arch)
+    if _int8_routes(weights, inputs.shape[0]):
+        return fused_loco_forward_dyn8_auto(weights['packed_int8'], inputs)
+    if weights.get('packed_bf16') is not None:
+        return fused_loco_forward(None, inputs, packed=weights['packed_bf16'])
+    precision = weights.get('precision')
+    if precision == 'bfloat16':
+        return folded_forward(weights['folded'].folded(), inputs, arch=arch,
+                              operand=round_bf16)
+    if precision == 'tensorfloat32':
+        with tf32_matmuls():
+            return weights['folded'](inputs)
+    return weights['folded'](inputs)
 
 
 def _bucket(n, minimum=4):
@@ -104,9 +139,6 @@ class Loco:
                  p_dropout=0.2, linear_size=1024, n_stage=3, mesh=None):
         if mode not in ('mono', 'stereo'):
             raise ValueError(f"mode not recognized: {mode}")
-        if n_dropout > 0:
-            raise NotImplementedError(
-                "MC-dropout epistemic passes are not ported yet: ROADMAP Queue 1 item 1")
         if mesh is not None:
             raise NotImplementedError(
                 "device meshes are not ported yet: ROADMAP Queue 1 item 9")
@@ -118,8 +150,8 @@ class Loco:
         self.net = net
         self.arch = 'monoloco' if self.net in ('monoloco', 'monoloco_p') else 'loco'
         self.n_dropout = n_dropout
-        # Stored for MC dropout (ROADMAP Queue 1 item 1), which uses it.
         self.p_dropout = p_dropout
+        self.mc_last = None
         self.device = torch.device(device) if device is not None else default_device()
 
         if isinstance(model, (str, os.PathLike)):
@@ -134,14 +166,19 @@ class Loco:
         self.n_stage = int(self.params['stages']['w1']['w'].shape[0])
         self.folded = fold_eval_params(self.params, self.bn_state, arch=self.arch)
         self.precision = serving_precision()
-        # Weights are stored f32 (the JAX package casts to bf16 only on a TPU);
-        # under int8 the dyn8 weights are packed once, here, for mono and the
-        # stereo pairing alike.
+        # Weights are stored f32 (the JAX package casts to bf16 only on a
+        # TPU); under int8 the dyn8 weights and under bfloat16 the K1-bf16
+        # weights are packed once, here, for mono and the stereo pairing
+        # alike. MC dropout runs the f32 `FoldedLoco` under every precision.
+        self.serve_storage = serve_storage()
         self.mlp_weights = {'folded': FoldedLoco(self.folded, self.arch).to(self.device),
-                            'packed_int8': None}
-        if (self.precision == 'int8' and self.arch == 'loco'
-                and self.linear_size % 128 == 0):
+                            'packed_int8': None, 'packed_bf16': None,
+                            'precision': self.precision}
+        kernel_width = self.arch == 'loco' and self.linear_size % 128 == 0
+        if self.precision == 'int8' and kernel_width:
             self.mlp_weights['packed_int8'] = pack_folded_weights_w8(self.folded)
+        if self.precision == 'bfloat16' and kernel_width:
+            self.mlp_weights['packed_bf16'] = pack_folded_weights(self.folded, torch.bfloat16)
         # Which MLP path each dispatch ran: the int8 kernel only engages at
         # >= _INT8_MIN_ROWS padded rows.
         self.n_dispatches = 0
@@ -185,18 +222,56 @@ class Loco:
         selected = torch.take_along_dim(out4, best[:, :, None, None], dim=2)[:, :, 0, :]
         return extract_outputs(selected.reshape(b * m, -1)), best
 
-    def forward(self, keypoints, kk, keypoints_r=None):
+    def draw_mc(self, rows):
+        """(masks, u) for one MC dispatch over images of `rows` padded
+        detections: `n_dropout_sites` keep-masks (n_dropout, rows, hidden)
+        bool and the Laplace uniforms (N_SAMPLES, rows), on the device, from
+        generators seeded 0 and 1 afresh on every call."""
+        masks = dropout_masks(self.n_dropout, rows, self.linear_size,
+                              n_dropout_sites(self.n_stage, self.arch), self.p_dropout,
+                              self.device, seed=0)
+        return masks, laplace_uniforms(N_SAMPLES, rows, self.device, seed=1)
+
+    def mc_epistemic(self, kps, kk, mc=None):
+        """The epistemic std of an image batch in one dispatch: kps (B, m, 3,
+        17) and kk (B, 3, 3) on the device -> (B, m) f32. The n_dropout
+        passes run stacked, (n_dropout, B, m, H), with every image's masks
+        alike; each pass's distance mean and Laplace spread (columns 0:2 of
+        the legacy 'monoloco' net, 2:4 otherwise) give N_SAMPLES samples, and
+        the std (ddof 1) is over all n_dropout * N_SAMPLES of them. `mc` is
+        (masks, u) as `draw_mc` makes them (drawn here when None); kept in
+        `mc_last`."""
+        masks, u = self.draw_mc(kps.shape[1]) if mc is None else mc
+        self.mc_last = (masks, u)
+        if self.net == 'monoloco':                   # per image only, B = 1
+            x = preprocess_monoloco(kps[0], kk[0], zero_center=True)[None]
+        else:
+            x = preprocess_monoloco(kps, kk)                                # (B, m, in)
+        out = folded_forward_mc(self.mlp_weights['folded'].folded(), x,
+                                [keep[:, None] for keep in masks], self.p_dropout, self.arch)
+        db = out[..., 0:2] if self.net == 'monoloco' else out[..., 2:4]     # (n, B, m, 2)
+        mu_b = torch.cat([db[..., 0:1], unnormalize_bi(db)], dim=-1)
+        samples = laplace_sampling(mu_b.transpose(0, 1), N_SAMPLES, u=u)   # (B, n, S, m)
+        return torch.std(samples.reshape(kps.shape[0], -1, kps.shape[1]), dim=1, correction=1)
+
+    def _mc_on(self):
+        return self.n_dropout > 0 and self.net != 'monstereo'
+
+    def forward(self, keypoints, kk, keypoints_r=None, mc=None):
         """One image: keypoints (m, 3, 17), kk (3, 3), and for the stereo net
         the right image's keypoints (r, 3, 17) (None or empty: the first left
         pose stands in) -> dict of numpy arrays (m rows each; 'yaw' is a
         (pred, egocentric) pair; stereo adds 'aux' and 'aux_idx', the right
-        pose chosen per left pose), epi zeros."""
+        pose chosen per left pose). 'epi' is the MC-dropout std with
+        n_dropout > 0 on a mono net (`mc`: injected draws for `mc_epistemic`,
+        over the padded bucket), else zeros."""
         if keypoints is None or len(keypoints) == 0:
             return None
         kps = np.asarray(keypoints, np.float32)
         m = kps.shape[0]
         bm = _bucket(m)
         kk_dev = torch.as_tensor(np.asarray(kk, np.float32), device=self.device)
+        epi = None
         with torch.inference_mode():
             if self.net == 'monstereo':
                 if keypoints_r is None or len(keypoints_r) == 0:
@@ -215,22 +290,27 @@ class Loco:
                 dic['aux_idx'] = best[0]
             else:
                 self._count_dispatch(bm)
-                dic = self._mono_forward(torch.from_numpy(_pad_rows(kps, bm)).to(self.device),
-                                         kk_dev)
+                kps_dev = torch.from_numpy(_pad_rows(kps, bm)).to(self.device)
+                dic = self._mono_forward(kps_dev, kk_dev)
+                if self._mc_on():
+                    epi = self.mc_epistemic(kps_dev[None], kk_dev[None], mc)[0, :m].cpu().numpy()
             dic = _to_host(dic)
         dic_out = {k: (v[0][:m], v[1][:m]) if k == 'yaw' else v[:m]
                    for k, v in dic.items()}
-        dic_out['epi'] = [0.] * m
+        dic_out['epi'] = [0.] * m if epi is None else epi
         return dic_out
 
-    def forward_batch(self, keypoints_list, kk_list, keypoints_r_list=None):
+    def forward_batch(self, keypoints_list, kk_list, keypoints_r_list=None, mc=None):
         """Run many images in one dispatch (see forward_batch_async)."""
-        return self.forward_batch_async(keypoints_list, kk_list, keypoints_r_list)()
+        return self.forward_batch_async(keypoints_list, kk_list, keypoints_r_list, mc)()
 
-    def forward_batch_async(self, keypoints_list, kk_list, keypoints_r_list=None):
+    def forward_batch_async(self, keypoints_list, kk_list, keypoints_r_list=None, mc=None):
         """Launch one dispatch over many images; returns a zero-arg finalize()
         producing the per-image output dicts (None for an image without
         detections), identical in layout to `forward`'s, without 'aux_idx'.
+        With n_dropout > 0 on a mono net a second dispatch computes 'epi'
+        for the whole batch (`mc`: injected draws over the shared detection
+        bucket, see `mc_epistemic`).
 
         keypoints_r_list (stereo net): per-image right keypoints (r_i, 3, 17);
         an entry may be None or empty, and then the image's first left pose
@@ -260,6 +340,7 @@ class Loco:
         def dev(arr):
             return torch.from_numpy(arr).to(self.device)
 
+        epi_dev = None
         with torch.inference_mode():
             if self.net == 'monstereo':
                 if keypoints_r_list is None:
@@ -280,10 +361,14 @@ class Loco:
                 dic_dev, _ = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask), dev(kks))
             else:
                 self._count_dispatch(b_bucket * m_bucket)
-                dic_dev = self._mono_forward(dev(kps), dev(kks))
+                kps_dev, kks_dev = dev(kps), dev(kks)
+                dic_dev = self._mono_forward(kps_dev, kks_dev)
+                if self._mc_on():
+                    epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
 
         def finalize():
             dic = _to_host(dic_dev)
+            epi = None if epi_dev is None else epi_dev.cpu().numpy()
             outs = []
             for i in range(n_img):
                 m = counts[i]
@@ -293,7 +378,7 @@ class Loco:
                 sl = slice(i * m_bucket, i * m_bucket + m)
                 dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
                          for k, v in dic.items()}
-                dic_i['epi'] = [0.] * m
+                dic_i['epi'] = [0.] * m if epi is None else epi[i, :m]
                 outs.append(dic_i)
             return outs
 
@@ -390,6 +475,28 @@ class Loco:
             dic_out['dds_real'].append(dd_real)
             dic_out['boxes_gt'].append(boxes_gt[idx_gt])
             dic_out['xyz_real'].append([float(x) for x in xyz_real.squeeze()])
+        return dic_out
+
+    @staticmethod
+    def social_distance(dic_out, args):
+        """Flag social-distancing violations per person, from
+        args.threshold_prob, args.threshold_dist and args.radii."""
+        angles = dic_out['angles']
+        dds = dic_out['dds_pred']
+        stds = dic_out['stds_ale']
+        xz_centers = [[xx[0], xx[2]] for xx in dic_out['xyz_pred']]
+        dic_out['social_distance'] = [
+            bool(social_interactions(idx, xz_centers, angles, dds, stds=stds,
+                                     threshold_prob=args.threshold_prob,
+                                     threshold_dist=args.threshold_dist,
+                                     radii=args.radii))
+            for idx, _ in enumerate(dic_out['xyz_pred'])
+        ]
+        return dic_out
+
+    @staticmethod
+    def raising_hand(dic_out, keypoints):
+        dic_out['raising_hand'] = [is_raising_hand(kp) for kp in keypoints]
         return dic_out
 
 

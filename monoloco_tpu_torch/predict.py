@@ -1,34 +1,45 @@
-"""Prediction: images + precomputed pifpaf poses -> `.monoloco.json`.
+"""Prediction: images + precomputed pifpaf poses -> `.monoloco.json` and
+figures.
 
-Counterpart of `monoloco_tpu/predict.py` for `--mode mono` and `--mode
-stereo` with `--output_types json`. Per image (per left/right pair in
-stereo): load the pifpaf annotations, build the calibration, forward the
-localization net, post-process (optionally against ground truth), write
-`out_<name>.monoloco.json` (the left image's name in stereo). More than two
-images (pairs) forward in 64-image (64-pair) chunks, one dispatch each, two
+Counterpart of `monoloco_tpu/predict.py` for `--mode mono`, `--mode stereo`
+and `--mode keypoints`. Per image (per left/right pair in stereo): load the
+pifpaf annotations, build the calibration, forward the localization net
+(with `--n_dropout`, the MC-dropout epistemic passes too), post-process
+(optionally against ground truth), apply `--activities`, and write
+`out_<name>.monoloco.json` and/or the `front`, `bird` and `multi` figures
+(the left image's name in stereo). More than two images (pairs) forward in
+64-image (64-pair) chunks, one dispatch each (two with MC dropout), two
 deep: the device computes one chunk while the host writes the previous one.
+`--mode keypoints` builds no net: it draws the poses (`.keypoints.png`) or
+writes an empty JSON, per image.
 
 Stereo takes the images sorted, an even number of them, as consecutive
 (left, right) pairs, as the JAX package does.
 
-The image size comes from the PNG or JPEG header (stdlib), so Pillow is not
-needed. Figures, `--activities`, `--webcam`, `--mode keypoints`, MC dropout
-and running OpenPifPaf itself are not ported yet and are refused with a
-message.
+The image size comes from the PNG or JPEG header (stdlib). matplotlib and
+Pillow are imported only when a figure is drawn: a json-only run needs
+neither, and a run that asks for a figure without them exits before any net
+is built. `--profile DIR` writes a torch.profiler Chrome trace of the run
+into DIR. `--webcam` and running OpenPifPaf itself are not ported and are
+refused with a message.
 """
 
 import glob
+import importlib
 import json
 import os
 import struct
 import time
+from collections import defaultdict
 
 import numpy as np
+import torch
 
 from .network import Loco, factory_for_gt, load_calibration, preprocess_pifpaf
 from .ops import launches
 
 CHUNK = 64
+FIGURE_TYPES = ('front', 'bird', 'multi')
 
 
 def image_size(path):
@@ -98,56 +109,107 @@ def load_annotations(image_path, args):
     return anns
 
 
+def draws_figures(args):
+    """Whether the run draws a figure: `--mode keypoints` unless the outputs
+    are json alone, else a front, bird or multi output."""
+    if args.output_types == ['json']:
+        return False
+    return args.mode == 'keypoints' or any(t in args.output_types for t in FIGURE_TYPES)
+
+
+def _require_figure_packages():
+    """Exit naming matplotlib or Pillow when one of them is missing."""
+    for module, package in (('matplotlib', 'matplotlib'), ('PIL', 'Pillow')):
+        try:
+            importlib.import_module(module)
+        except ImportError:
+            raise SystemExit(f"the figure outputs need {package}, which is not installed "
+                             f"here: pass --output_types json, or install {package}") from None
+
+
 def factory_from_args(args):
     if args.glob:
         args.images += sorted(glob.glob(args.glob))
     if not args.images:
         raise SystemExit("no image files given")
-    if args.mode not in ('mono', 'stereo'):
-        raise SystemExit(f"predict --mode {args.mode} is not ported to the torch "
-                         "package yet (ROADMAP Queue 1 item 2): use --mode mono or stereo")
+    if args.mode not in ('keypoints', 'mono', 'stereo'):
+        raise SystemExit(f"predict --mode {args.mode}: use keypoints, mono or stereo")
+    if args.path_gt is None:
+        args.show_all = True
+    if not args.output_types and args.mode != 'keypoints':
+        # Activity rendering draws front/bird views (show_activities).
+        args.output_types = ['front', 'bird'] if args.activities else ['multi']
+    if args.activities and not any(x in args.output_types for x in ('front', 'bird', 'json')):
+        raise SystemExit("--activities outputs render as front/bird views (or json): pass "
+                         "--output_types front bird [json]")
     if args.mode == 'stereo':
         args.images = sorted(args.images)
         if len(args.images) % 2:
             raise SystemExit(f"Odd number of images in a stereo setting ({len(args.images)}): "
                              "stereo takes (left, right) pairs")
-    if args.activities:
-        raise SystemExit("predict --activities is not ported to the torch package yet "
-                         "(ROADMAP Queue 1 item 2)")
-    if args.n_dropout > 0:
-        raise SystemExit("predict --n_dropout (MC dropout) is not ported to the torch "
-                         "package yet (ROADMAP Queue 1 item 1)")
-    if args.output_types != ['json']:
-        raise SystemExit("the torch package writes --output_types json only; "
-                         "figure outputs are not ported yet")
-    if not args.model:
-        raise SystemExit("--model checkpoint path required")
+        if 'social_distance' in args.activities:
+            raise SystemExit("Social distance not supported in stereo modality")
+    if 'social_distance' in args.activities and args.net == 'monoloco':
+        # the legacy net predicts no orientation, and F-formations need yaw
+        raise SystemExit("social_distance requires orientation output: the legacy monoloco "
+                         "net does not predict yaw — use monoloco_pp")
+    if args.mode != 'keypoints':
+        if not any(x in args.output_types for x in FIGURE_TYPES + ('json',)):
+            raise SystemExit("No output type specified, please select one among front, bird, "
+                             "multi, json")
+        if not args.model:
+            raise SystemExit("--model checkpoint path required")
+    if draws_figures(args):
+        _require_figure_packages()
     return args
 
 
 def predict(args):
     """Run prediction; returns the Loco engine, whose dispatch counters say
-    which MLP path the run took."""
+    which MLP path the run took (None under --mode keypoints). With
+    args.profile, the run is traced by torch.profiler (CUDA activity too
+    when it runs on a card) into <profile>/predict_trace.json."""
     args = factory_from_args(args)
-    device = 'cpu' if args.disable_cuda else None
-    net = Loco(model=args.model, mode=args.mode, net=args.net, device=device,
-               n_dropout=args.n_dropout, p_dropout=args.dropout)
+    if not getattr(args, 'profile', None):
+        return _predict_run(args)
+    from torch.profiler import ProfilerActivity, profile
+    on_card = torch.cuda.is_available() and not args.disable_cuda
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=activities) as prof:
+        net = _predict_run(args)
+        if on_card:
+            torch.cuda.synchronize()
+    path = os.path.join(args.profile, 'predict_trace.json')
+    prof.export_chrome_trace(path)
+    print(f"torch.profiler trace: {path}")
+    return net
+
+
+def _predict_run(args):
+    net = None
+    if args.mode in ('mono', 'stereo'):
+        device = 'cpu' if args.disable_cuda else None
+        net = Loco(model=args.model, mode=args.mode, net=args.net, device=device,
+                   n_dropout=args.n_dropout, p_dropout=args.dropout)
     if args.output_directory is not None:
         os.makedirs(args.output_directory, exist_ok=True)
     step = 2 if args.mode == 'stereo' else 1
-    if len(args.images) // step > 2 and net.net in ('monoloco_pp', 'monoloco_p', 'monstereo'):
+    if (net is not None and len(args.images) // step > 2
+            and net.net in ('monoloco_pp', 'monoloco_p', 'monstereo')):
         _predict_batched(args, net, step)
     else:
         _predict_per_image(args, net, step)
-    print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
-          f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
-          f"(precision {net.precision}, device {net.device})")
+    if net is not None:
+        print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
+              f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
+              f"(precision {net.precision}, device {net.device})")
     return net
 
 
 def _load_one(args, image_path, right_path=None):
-    """Boxes, keypoints, calibration and ground truth of one image, and the
-    keypoints of its right image (None without one)."""
+    """Annotations, boxes, keypoints, calibration and ground truth of one
+    image, and the keypoints of its right image (None without one)."""
     annotations = load_annotations(image_path, args)
     if args.json_output is not None:
         _dump_pifpaf_json(args, image_path, annotations)
@@ -162,7 +224,7 @@ def _load_one(args, image_path, right_path=None):
     keypoints_r = None
     if right_path is not None:
         _, keypoints_r = preprocess_pifpaf(load_annotations(right_path, args), im_size)
-    return boxes, keypoints, keypoints_r, kk, dic_gt
+    return annotations, boxes, keypoints, keypoints_r, kk, dic_gt
 
 
 def _pairs(args, step):
@@ -172,11 +234,29 @@ def _pairs(args, step):
             for i in range(0, len(args.images), step)]
 
 
+def _activities(args, net, dic_out, keypoints):
+    """The --activities flags, after post-processing."""
+    if 'social_distance' in args.activities:
+        dic_out = net.social_distance(dic_out, args)
+    if 'raise_hand' in args.activities:
+        dic_out = net.raising_hand(dic_out, keypoints)
+    return dic_out
+
+
 def _predict_per_image(args, net, step):
     timing = []
     for cnt, (image_path, right_path) in enumerate(_pairs(args, step)):
-        boxes, keypoints, keypoints_r, kk, dic_gt = _load_one(args, image_path, right_path)
         output_path = _output_path(args, image_path)
+        if args.mode == 'keypoints':
+            annotations = load_annotations(image_path, args)
+            if args.json_output is not None:
+                _dump_pifpaf_json(args, image_path, annotations)
+            print(f'{cnt} image {os.path.basename(image_path)} saved as {output_path}')
+            factory_outputs(args, image_path, annotations, defaultdict(list), output_path)
+            print(f'Image {cnt}\n' + '-' * 120)
+            continue
+        annotations, boxes, keypoints, keypoints_r, kk, dic_gt = _load_one(
+            args, image_path, right_path)
         print(f'{cnt} image {os.path.basename(image_path)} saved as {output_path}')
         start = time.time()
         dic_out = net.forward(keypoints, kk, keypoints_r=keypoints_r)
@@ -184,32 +264,38 @@ def _predict_per_image(args, net, step):
         timing.append(fwd_time)
         print(f"Forward time: {fwd_time:.0f} ms")
         dic_out = net.post_process(dic_out, boxes, keypoints, kk, dic_gt)
-        _write_json(dic_out, output_path)
+        dic_out = _activities(args, net, dic_out, keypoints)
+        factory_outputs(args, image_path, annotations, dic_out, output_path, kk=kk)
         print(f'Image {cnt}\n' + '-' * 120)
-    timing_arr = np.array(timing)
-    print(f'Processed {len(timing) * step} images with an average time of '
-          f'{int(timing_arr.mean())} ms and a std of {int(timing_arr.std())} ms')
+    if timing:
+        timing_arr = np.array(timing)
+        print(f'Processed {len(timing) * step} images with an average time of '
+              f'{int(timing_arr.mean())} ms and a std of {int(timing_arr.std())} ms')
 
 
 def _predict_batched(args, net, step):
-    """Forward 64-image (stereo: 64-pair) chunks as one dispatch each, two
-    deep: chunk s loads and launches while chunk s-1 is still on the device."""
+    """Forward 64-image (stereo: 64-pair) chunks as one dispatch each (with
+    MC dropout, two), two deep: chunk s loads and launches while chunk s-1
+    is still on the device. Post-processing, activities and outputs are per
+    image, as in the per-image loop."""
     pairs = _pairs(args, step)
     cnt = 0
     since = time.time()
 
     def launch(s):
         batch = [(p, *_load_one(args, p, r)) for p, r in pairs[s:s + CHUNK]]
-        fin = net.forward_batch_async([b[2] for b in batch], [b[4] for b in batch],
-                                      [b[3] for b in batch])
+        fin = net.forward_batch_async([b[3] for b in batch], [b[5] for b in batch],
+                                      [b[4] for b in batch])
         return batch, fin
 
     def drain(batch, fin):
         nonlocal cnt
-        for (image_path, boxes, keypoints, _, kk, dic_gt), dic_fwd in zip(batch, fin()):
+        for (image_path, annotations, boxes, keypoints, _, kk, dic_gt), dic_fwd in zip(
+                batch, fin()):
             output_path = _output_path(args, image_path)
             dic_out = net.post_process(dic_fwd, boxes, keypoints, kk, dic_gt)
-            _write_json(dic_out, output_path)
+            dic_out = _activities(args, net, dic_out, keypoints)
+            factory_outputs(args, image_path, annotations, dic_out, output_path, kk=kk)
             print(f'{cnt} image {os.path.basename(image_path)} saved as {output_path}')
             cnt += 1
 
@@ -224,6 +310,39 @@ def _predict_batched(args, net, step):
     wall = time.time() - since
     print(f'Processed {cnt * step} images in {wall:.2f} s '
           f'({cnt * step / max(wall, 1e-9):.1f} images/s, batched forward)')
+
+
+def _open_rgb(image_path):
+    from PIL import Image
+    with open(image_path, 'rb') as f:
+        return Image.open(f).convert('RGB')
+
+
+def factory_outputs(args, image_path, annotations, dic_out, output_path, kk=None):
+    """Write the JSON and/or draw the figures of one image; the image is read
+    with Pillow only for a figure."""
+    if 'json' in args.output_types:
+        _write_json(dic_out, output_path)
+        if len(args.output_types) == 1:
+            return
+
+    if args.mode == 'keypoints':
+        from .visuals.pifpaf_show import KeypointPainter, get_pifpaf_outputs, image_canvas
+        kps, _ = get_pifpaf_outputs(annotations)
+        with image_canvas(_open_rgb(image_path), output_path + '.keypoints.png') as ax:
+            KeypointPainter().keypoints(ax, kps)
+        return
+
+    if any(x in args.output_types for x in FIGURE_TYPES):
+        cpu_image = _open_rgb(image_path)
+        if args.activities:
+            from .activity import show_activities
+            show_activities(args, cpu_image, output_path, annotations, dic_out)
+        else:
+            from .visuals.printer import Printer
+            printer = Printer(cpu_image, output_path, kk, args)
+            figures, axes = printer.factory_axes(dic_out)
+            printer.draw(figures, axes, cpu_image, dic_out, annotations=annotations)
 
 
 def _output_path(args, image_path):

@@ -1,1 +1,1 @@
-from .precision import serving_precision
+from .precision import serve_storage, serving_precision, tf32_matmuls

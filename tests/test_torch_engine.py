@@ -205,21 +205,23 @@ def test_legacy_mono_nets_match_jax(net, out_dim):
 
 
 def test_refuses_what_is_not_ported(monkeypatch):
-    """MC dropout and meshes are refused with their ROADMAP Queue 1 items;
-    stereo runs (tests/test_torch_stereo.py)."""
+    """Meshes are refused with their ROADMAP Queue 1 item; MC dropout runs
+    (tests/test_torch_mc.py), stereo too (tests/test_torch_stereo.py). Every
+    precision spelling of the JAX package is served, an unknown one raises."""
     params, bn = _toy_params()
     model = params_from_numpy(params, bn)
     assert Loco(model=model, mode='stereo', net='monoloco_pp', device='cpu').mode == 'stereo'
-    with pytest.raises(NotImplementedError, match='item 1'):
-        Loco(model=model, n_dropout=3, device='cpu')
+    assert Loco(model=model, n_dropout=3, device='cpu').n_dropout == 3
     with pytest.raises(NotImplementedError, match='item 9'):
         Loco(model=model, mesh=object(), device='cpu')
-    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'bf16')
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'fp16')
     with pytest.raises(ValueError, match='MONOLOCO_TPU_PRECISION'):
         serving_precision()
     for raw, canon in (('f32', 'float32'), ('float32', 'float32'), ('fp32', 'float32'),
                        ('highest', 'float32'), ('int8-a8', 'default'),
-                       ('int8-xla', 'default'), ('default', 'default'), ('int8', 'int8')):
+                       ('int8-xla', 'default'), ('default', 'default'), ('int8', 'int8'),
+                       ('bf16', 'bfloat16'), ('bfloat16', 'bfloat16'),
+                       ('tensorfloat32', 'tensorfloat32')):
         monkeypatch.setenv('MONOLOCO_TPU_PRECISION', raw)
         assert serving_precision() == canon
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -1,11 +1,14 @@
 """The torch port never imports jax (nor optax, which the JAX package's
-trainer checkpoints reference).
+trainer checkpoints reference), and a json-only predict run imports neither
+matplotlib nor Pillow (the card's machine has no matplotlib).
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
-CPU slice once (predict on fixture copies, mono and stereo, f32 and int8),
-runs each bench leg, ablation variant and the roofline tool's rows once at a
-toy size, and then asserts that neither jax nor optax is in sys.modules.
+CPU slice once (json-only predict on fixture copies, mono and stereo, f32
+and int8, mono with MC dropout and both activities, f32 and bf16, and
+--mode keypoints), runs each bench leg, ablation variant and the roofline
+tool's rows once at a toy size, and then asserts that none of jax, optax,
+matplotlib and PIL is in sys.modules.
 """
 
 import os
@@ -35,7 +38,7 @@ _SCRIPT = textwrap.dedent("""
             shutil.copy(os.path.join(here, 'fixture_002282.pifpaf.json'),
                         dst + '.pifpaf.json')
         args = ['predict', '--glob', os.path.join(tmp, '*.png'), '--model', model,
-                '--calibration', 'kitti', '--disable-cuda']
+                '--calibration', 'kitti', '--disable-cuda', '--output_types', 'json']
         net = run.main(args + ['-o', os.path.join(tmp, 'f32')])
         assert net.n_dispatches == 1 and net.n_dispatches_int8 == 0
         os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
@@ -43,6 +46,13 @@ _SCRIPT = textwrap.dedent("""
         net = run.main(args + ['-o', os.path.join(tmp, 'int8')])
         assert net.n_dispatches_int8 == 1
         assert len(os.listdir(os.path.join(tmp, 'int8'))) == 3
+        mc = ['--n_dropout', '3', '--activities', 'social_distance', 'raise_hand']
+        for precision in ('float32', 'bf16'):
+            os.environ['MONOLOCO_TPU_PRECISION'] = precision
+            net = run.main(args + mc + ['-o', os.path.join(tmp, 'mc' + precision)])
+            assert net.mc_last is not None and net.n_dispatches_int8 == 0
+        assert run.main(args + ['--mode', 'keypoints', '-o', os.path.join(tmp, 'kps')]) is None
+        assert len(os.listdir(os.path.join(tmp, 'kps'))) == 3
     # predict --mode stereo on fixture pairs (the right poses shifted left by
     # 20 px), per-image (1 pair) and batched (3 pairs), f32 then int8.
     import json
@@ -65,7 +75,8 @@ _SCRIPT = textwrap.dedent("""
             os.environ['MONOLOCO_TPU_PRECISION'] = precision
             out = os.path.join(tmp, f'{precision}{len(images)}')
             net = run.main(['predict', *images, '--mode', 'stereo', '--model', stereo_model,
-                            '--calibration', 'kitti', '--disable-cuda', '-o', out])
+                            '--calibration', 'kitti', '--disable-cuda', '--output_types',
+                            'json', '-o', out])
             assert net.n_dispatches == 1 and len(os.listdir(out)) == len(images) // 2
             assert net.n_dispatches_int8 == (precision == 'int8')
     from monoloco_tpu_torch import bench
@@ -78,7 +89,8 @@ _SCRIPT = textwrap.dedent("""
         bench_pallas_int8.measure_variant(variant, mlp, keypoints, kk, 1)
     assert len(bench_roofline.measure_rows(batch=16, peak_n=64, device='cpu', reps=1)) == 4
     print('NAMES', ' '.join(names))
-    leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax'))
+    leaked = sorted(m for m in sys.modules
+                    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib', 'PIL'))
     print('MODULES', len(names), 'LEAKED', leaked)
     assert not leaked, leaked
 """)
@@ -93,13 +105,14 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert 'LEAKED []' in res.stdout
     n_modules = int(re.search(r'MODULES (\d+)', res.stdout).group(1))
-    assert n_modules >= 19
+    assert n_modules >= 23
     names = set(re.search(r'NAMES (.*)', res.stdout).group(1).split())
     assert {'monoloco_tpu_torch.bench', 'monoloco_tpu_torch.ops.quant',
             'monoloco_tpu_torch.geometry.stereo',
             'monoloco_tpu_torch.tools.bench_pallas_int8',
             'monoloco_tpu_torch.tools.bench_pallas_crossover',
-            'monoloco_tpu_torch.tools.bench_roofline'} <= names
+            'monoloco_tpu_torch.tools.bench_roofline', 'monoloco_tpu_torch.activity',
+            'monoloco_tpu_torch.visuals.printer', 'monoloco_tpu_torch.visuals.pifpaf_show'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

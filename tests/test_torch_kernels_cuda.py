@@ -385,3 +385,64 @@ def test_stereo_engine_int8_against_float32(cuda_device, monkeypatch):
     d8, d32 = outs['int8']['d'][same], outs['float32']['d'][same]
     assert np.isfinite(d8).all()
     assert np.abs(d8 - d32).mean() / np.abs(d32).mean() < 0.02
+
+
+def _mono_keypoints(m, seed):
+    rng = np.random.default_rng(seed)
+    kps = rng.uniform(0, 1, size=(m, 3, 17)).astype(np.float32)
+    kps[:, 0] = kps[:, 0] * 800 + 200
+    kps[:, 1] = kps[:, 1] * 200 + 80
+    return kps
+
+
+KK_KITTI = [[718.3351, 0., 600.3891], [0., 718.3351, 181.5122], [0., 0., 1.]]
+
+
+@pytest.mark.parametrize('spelling', ['bf16', 'bfloat16'])
+def test_mono_engine_bf16_launches_k1_bf16_on_every_dispatch(cuda_device, monkeypatch, spelling):
+    """Under bf16 a Loco net of hidden % 128 == 0 runs K1-bf16 on every
+    dispatch, per image (8 rows) and batched (3 images, 48 rows), never
+    dyn8; its distances stay within 0.02 mean relative of float32's."""
+    from monoloco_tpu_torch.network import Loco
+    params, bn = init_loco_params(0, 34, 9, 1024, 3)
+    params['w_fin']['b'][2] += 15.0
+    kps = [_mono_keypoints(m, seed) for m, seed in ((5, 1), (16, 2), (9, 3))]
+    outs = {}
+    for precision in ('float32', spelling):
+        monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
+        net = Loco((params, bn), mode='mono', device=cuda_device)
+        before = dict(ops.launches)
+        one = net.forward(kps[0], KK_KITTI)
+        many = net.forward_batch(kps, [KK_KITTI] * 3)
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in ops.launches.items() if n != before[k]}
+        assert ran == ({} if precision == 'float32' else {'fused_mlp_bf16': 2})
+        outs[precision] = np.concatenate([one['d'][:, 0]] + [o['d'][:, 0] for o in many])
+    d, d32 = outs[spelling], outs['float32']
+    assert np.isfinite(d).all() and 0 < np.abs(d - d32).mean() / np.abs(d32).mean() < 0.02
+
+
+@pytest.mark.parametrize('precision', ['float32', 'int8', 'bf16', 'tensorfloat32'])
+def test_mc_epistemic_on_the_card_matches_the_cpu_on_its_draws(cuda_device, monkeypatch,
+                                                              precision):
+    """MC dropout stays f32 under every precision: the card's epi, per image
+    and batched, equals the CPU's plain f32 recomputation from the masks and
+    uniforms the card drew within 1e-4 relative; TF32 is off after."""
+    from monoloco_tpu_torch.network import Loco
+    params, bn = init_loco_params(1, 34, 9, 256, 2)
+    params['w_fin']['b'][2] += 15.0
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
+    net = Loco((params, bn), mode='mono', device=cuda_device, n_dropout=4)
+    cpu = Loco((params, bn), mode='mono', device='cpu', n_dropout=4)
+    kps = [_mono_keypoints(m, seed) for m, seed in ((5, 4), (7, 5))]
+    for outs in ([net.forward(kps[0], KK_KITTI)], net.forward_batch(kps, [KK_KITTI] * 2)):
+        masks, u = net.mc_last
+        mc = ([m.cpu() for m in masks], u.cpu())
+        if len(outs) == 1:
+            ref = [cpu.forward(kps[0], KK_KITTI, mc=mc)]
+        else:
+            ref = cpu.forward_batch(kps, [KK_KITTI] * 2, mc=mc)
+        for o, r in zip(outs, ref):
+            assert (o['epi'] > 0).all()
+            np.testing.assert_allclose(o['epi'], r['epi'], rtol=1e-4, atol=0)
+    assert not torch.backends.cuda.matmul.allow_tf32

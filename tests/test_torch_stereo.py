@@ -349,9 +349,14 @@ def test_loco_takes_the_jax_callers_keywords(monkeypatch, checkpoints, caller):
 
 
 def test_loco_still_refuses_mc_dropout_and_meshes():
+    """Meshes and unknown modes are refused. MC dropout is served since it
+    was ported: on the stereo net it leaves epi at zeros, as the JAX engine
+    does (`engine.py:404`)."""
     model = _jax_tree(jax.random.PRNGKey(1), 68, 10, 64, 2)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 1'):
-        Loco(model, mode='stereo', n_dropout=2, device='cpu')
+    net = Loco(model, mode='stereo', n_dropout=2, device='cpu')
+    kps = _keypoints(3, seed=1)
+    assert list(net.forward(kps, KK, keypoints_r=kps)['epi']) == [0.0] * 3
+    assert net.forward_batch([kps], [KK], [kps])[0]['epi'] == [0.0] * 3
     with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
         Loco(model, mode='stereo', mesh=object(), device='cpu')
     with pytest.raises(ValueError, match='mode'):
@@ -371,9 +376,25 @@ def test_jax_precision_spellings_are_served(monkeypatch, raw, canon):
 
 @pytest.mark.parametrize('raw', ['bf16', 'bfloat16', 'tensorfloat32'])
 def test_bf16_spellings_wait_for_serving(monkeypatch, raw):
+    """The three spellings are served: under bf16/bfloat16 the stereo net
+    (hidden 128) routes its pairing rows to K1-bf16 (its plain version on
+    the CPU), within the 0.02 budget of the f32 engine on the distance;
+    tensorfloat32 has no kernel and equals f32 on the CPU."""
+    model = _jax_tree(jax.random.PRNGKey(1), 68, 10, 128, 2)
+    kps, kps_r = _keypoints(4, seed=3), _keypoints(3, seed=4)
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'float32')
+    ref = Loco(model, mode='stereo', device='cpu').forward(kps, KK, keypoints_r=kps_r)
     monkeypatch.setenv('MONOLOCO_TPU_PRECISION', raw)
-    with pytest.raises(ValueError, match='Queue 1 item 3'):
-        serving_precision()
+    canon = 'tensorfloat32' if raw == 'tensorfloat32' else 'bfloat16'
+    assert serving_precision() == canon
+    net = Loco(model, mode='stereo', device='cpu')
+    assert (net.mlp_weights['packed_bf16'] is not None) == (canon == 'bfloat16')
+    out = net.forward(kps, KK, keypoints_r=kps_r)
+    if canon == 'tensorfloat32':
+        np.testing.assert_array_equal(out['d'], ref['d'])
+    else:
+        rel = float(np.abs(out['d'] - ref['d']).mean() / np.abs(ref['d']).mean())
+        assert 0 < rel < 0.02, rel
 
 
 # --- predict --mode stereo against monoloco_tpu.predict ------------------------
