@@ -74,8 +74,27 @@ to the CPU):
  14. `--mode keypoints --output_types json` builds no engine and launches
     nothing; one float32 run under `--profile` gives the device's busy
     share of predict (CUDA kernel time over the profiled wall).
+ 15. The serving entry point: `python -m monoloco_tpu_torch.serve --model
+    <phase 4's checkpoint> --port 0` under int8 in a subprocess; /healthz
+    (int8, kernel packed), 64 concurrent keep-alive clients x 8 POSTs of
+    the fixture's 16 detections (boxes on every other one), /metrics (int8
+    dispatches, nothing shed, batches coalesced), every distance against an
+    in-process float32 Loco under the dyn8 budget, SIGTERM -> exit 0 in 10 s.
+ 16. In-process `Server`s on port 0 under the same clients, launches
+    counted: mono int8 (dyn8), MonStereo int8 (16 left and 16 right poses a
+    request; dyn8 at 68 -> 10, distances against float32 where both chose
+    the same right pose), mono bf16 (K1-bf16 on every dispatch, within 0.02
+    of float32) and mono default (no launch, each response equal to
+    `Loco.forward_batch` of a batch of its dispatch's size within 1e-5 (1 +
+    |ref|)); each run under torch.profiler for the device's busy share.
+ 17. The serving tools as a user runs them: `tools.bench_serve` closed loop
+    (32 clients x 20 requests x 16 detections) under int8 (with
+    `--expect-int8`), default and bf16, and `--direct --sweep
+    500,2000,8000 --duration 2` under int8; `tools.bench_latency --batches
+    1,16,256,4096` (default, bf16, int8); `tools.bench_int8_crossover` at 16
+    to 131072 rows. Every JSON line printed, every checksum finite.
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12 and 13, each with every count set to 0 just before it); a count is one
+8, 9, 11, 12, 13, 16 and 17, each with every count set to 0 just before it); a count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
 2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
 entry has its time, its plain version's, the bound (the larger of its
@@ -149,6 +168,9 @@ ACTIVITY_ARGS = argparse.Namespace(threshold_prob=0.25, threshold_dist=2.5,
                                    radii=(0.3, 0.5, 1))      # the CLI's defaults
 MC_TOL = 1e-4              # card epi vs the CPU's recomputation, max relative
 BF16_BUDGET = 0.02         # bf16 dds_pred vs float32, mean relative
+SERVE_IM_SIZE = (1238, 374)        # phases 15-16: the fixture as a serve request
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_DETS = 64, 8, 16
+CROSSOVER_ROWS = '16,32,64,128,256,512,1024,2048,8192,131072'
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -1209,6 +1231,330 @@ def phase_keypoints_profile(tmp):
           f"{busy['gpu_memset'] / 1e3:.3f} ms)")
 
 
+def _fixture_request():
+    """The KITTI fixture as a serve request: its 16 poses (m, 3, 17), its
+    boxes and K, as lists."""
+    from monoloco_tpu_torch.network import load_calibration, preprocess_pifpaf
+    with open(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json')) as f:
+        anns = json.load(f)
+    boxes, keypoints = preprocess_pifpaf(anns, im_size=SERVE_IM_SIZE)
+    return keypoints, boxes, load_calibration('kitti', SERVE_IM_SIZE)
+
+
+def _fire_clients(port, payload, n_clients=SERVE_CLIENTS, n_requests=SERVE_REQUESTS):
+    """n_clients concurrent keep-alive clients, each POSTing payload(client,
+    i) n_requests times; every response must be 200. Returns [(client, i,
+    response dict)]."""
+    import http.client
+    import threading
+    out, errors, lock = [], [], threading.Lock()
+
+    def client(c):
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=120)
+        try:
+            for i in range(n_requests):
+                conn.request('POST', '/v1/predict', body=json.dumps(payload(c, i)).encode(),
+                             headers={'Content-Type': 'application/json'})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {body}")
+                with lock:
+                    out.append((c, i, body))
+        except Exception as exc:  # noqa: BLE001 — every client's failure is reported
+            with lock:
+                errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not errors, f"{len(errors)} serve clients failed, first: {errors[:1]}")
+    check(len(out) == n_clients * n_requests, f"{len(out)} responses")
+    return out
+
+
+def _get_json(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}{path}', timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _rel_dev(responses, ref):
+    """Mean relative deviation of every response's distance (xyzd[:, 3])
+    from that of `ref`, one image's forward outputs."""
+    d = np.concatenate([np.asarray(r['outputs']['xyzd'], np.float64)[:, 3]
+                        for _, _, r in responses])
+    ref = np.tile(np.asarray(ref['xyzd'], np.float64)[:, 3], len(responses))
+    check(np.isfinite(d).all(), "non-finite distances in the responses")
+    return float(np.abs(d - ref).mean() / np.abs(ref).mean())
+
+
+def phase_serve_entry(tmp):
+    """`python -m monoloco_tpu_torch.serve` under int8 on phase 4's
+    checkpoint, as a user starts it: healthz, 64 keep-alive clients x 8
+    requests of the fixture, metrics, every distance against an in-process
+    float32 Loco, SIGTERM."""
+    import re
+    import signal
+    import threading
+    from monoloco_tpu_torch.network import Loco
+    print(f"== phase 15: python -m monoloco_tpu_torch.serve under int8, {SERVE_CLIENTS} clients "
+          f"x {SERVE_REQUESTS} requests x {SERVE_DETS} detections", flush=True)
+    model = _main_model(tmp)
+    kps, boxes, kk = _fixture_request()
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    ref = Loco(model=model, mode='mono', device='cuda').forward(kps, kk)
+    env = dict(os.environ, MONOLOCO_TPU_PRECISION='int8')
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, '-m', 'monoloco_tpu_torch.serve', '--model', model,
+                             '--port', '0'], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, serving = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith('serving '):
+                serving.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not serving.wait(180):
+            fail(f"the server printed no 'serving' line: {lines[-20:]}")
+        port = int(re.search(r'http://[^:]+:(\d+)', lines[-1]).group(1))
+        print(f"{lines[-1]} (up in {time.perf_counter() - t0:.1f} s)", flush=True)
+        health = _get_json(port, '/healthz')
+        print(f"/healthz: {json.dumps(health)}")
+        check(health['precision'] == 'int8' and health['int8_kernel'] is True,
+              "healthz: not serving int8 with the kernel packed")
+
+        def payload(c, i):
+            req = {'keypoints': kps, 'kk': kk}
+            if (c + i) % 2:
+                req['boxes'] = boxes
+            return req
+
+        t1 = time.perf_counter()
+        responses = _fire_clients(port, payload)
+        wall = time.perf_counter() - t1
+        metrics = _get_json(port, '/metrics')
+        print(f"/metrics: {json.dumps(metrics)}")
+        print(f"{len(responses)} requests in {wall:.3f} s: {len(responses) / wall:.1f} "
+              f"requests/s, {len(responses) * SERVE_DETS / wall:.1f} inferences/s", flush=True)
+        check(metrics['int8_dispatches'] > 0 and metrics['shed'] == 0
+              and metrics['mean_batch'] > 1, "metrics: no int8 dispatch, shed, or no coalescing")
+        with_pp = [r for c, i, r in responses if (c + i) % 2]
+        check(all(len(r['post_process']['dds_pred']) == SERVE_DETS for r in with_pp)
+              and all('post_process' not in r for c, i, r in responses if not (c + i) % 2),
+              "post_process present where boxes were not sent, or missing where they were")
+        rel = _rel_dev(responses, ref)
+        print(f"int8 distances of {len(responses)} responses against float32 Loco: mean "
+              f"relative deviation {rel:.3e} (budget {DYN8_BUDGET})")
+        check(rel < DYN8_BUDGET, "served int8 distances outside the dyn8 budget")
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(10)
+        except subprocess.TimeoutExpired:
+            fail("the server did not exit within 10 s of SIGTERM")
+        check(code == 0, f"the server exited {code} after SIGTERM: {lines[-20:]}")
+        print(f"SIGTERM: exited 0 in {time.perf_counter() - t0:.1f} s of life")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+
+
+def _serve_in_process(net, payload):
+    """An in-process Server on port 0 over `net`, warmed up, every launch
+    count and the net's dispatch counters set to 0, then the client
+    pattern, traced by torch.profiler (device activity only) for the
+    device's busy share of serving. Returns (responses, metrics, launches,
+    the dispatches' batch sizes)."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.serve import Server
+    srv = Server(net, port=0)
+    srv.warmup()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        net.n_dispatches = net.n_dispatches_int8 = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            responses = _fire_clients(srv.port, payload)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        metrics = _get_json(srv.port, '/metrics')
+    finally:
+        srv.shutdown()
+    sizes = list(srv.batcher.batch_sizes)
+    ran = {k: n for k, n in launches.items() if n}
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    share = f"{busy / wall:.4%} ({busy * 1e3:.3f} ms of device activity)" if busy else \
+        "not measured (the profiler saw no device activity)"
+    print(f"  {len(responses)} requests in {wall:.3f} s ({len(responses) / wall:.1f} requests/s, "
+          f"under the profiler), dispatches {metrics['dispatches']}, int8 "
+          f"{metrics['int8_dispatches']}, mean batch {metrics['mean_batch']:.2f}, max "
+          f"{metrics['max_batch']}, device_ms {metrics['device_ms']}, latency_ms "
+          f"{metrics['latency_ms']}, launches {ran}; device busy share {share}", flush=True)
+    check(metrics['shed'] == 0, "requests were shed")
+    return responses, metrics, ran, sizes
+
+
+def _max_rel(response, own):
+    """{key: max |diff| / (1 + |ref|)} of a response's outputs against
+    one image's forward outputs."""
+    err = {}
+    for key, v in own.items():
+        a = np.asarray(response['outputs'][key], np.float64)
+        b = np.asarray([np.asarray(x) for x in v] if key == 'yaw' else v, np.float64)
+        err[key] = float((np.abs(a - b) / (1 + np.abs(b))).max()) if b.size else 0.0
+    return err
+
+
+def check_default_responses(net, responses, sizes, kps, kk):
+    """Every response of the default server equals, within 1e-5 (1 +
+    |ref|), `Loco.forward_batch` of a batch like the one it was dispatched
+    in: the fixture image B times, for a B the batcher dispatched (the f32
+    products' sum order may depend on the batch's shape)."""
+    refs = [own for b in sorted(set(sizes)) for own in net.forward_batch([kps] * b, [kk] * b)]
+    alone = net.forward_batch([kps], [kk])[0]
+    worst = max(min(max(_max_rel(r, own).values()) for own in refs) for _, _, r in responses)
+    single = {}
+    for _, _, r in responses:
+        for key, e in _max_rel(r, alone).items():
+            single[key] = max(single.get(key, 0.0), e)
+    print(f"  every response against Loco.forward_batch of its dispatch's batch size "
+          f"({len(set(sizes))} sizes): max |diff| / (1 + |ref|) {worst:.3e} (tolerance 1e-5); "
+          f"against one image alone, by key: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in single.items()))
+    check(worst <= 1e-5, "default responses differ from Loco.forward_batch")
+
+
+def phase_serve_kernels(tmp, s_params, s_bn):
+    """In-process servers counting launches: mono int8 (dyn8), stereo int8
+    (dyn8 at 68 -> 10), mono bf16 (K1-bf16 on every dispatch), mono default
+    (no launch, equal to Loco.forward_batch). Returns the launch counts."""
+    from monoloco_tpu_torch.geometry import BF
+    from monoloco_tpu_torch.models import fold_eval_params, save_checkpoint
+    from monoloco_tpu_torch.network import Loco, preprocess_monstereo
+    from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
+    print(f"== phase 16: in-process servers, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} "
+          f"requests", flush=True)
+    model = _main_model(tmp)
+    kps, _, kk = _fixture_request()
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    ref = Loco(model=model, mode='mono', device='cuda').forward(kps, kk)
+    counts = {}
+
+    def mono(c, i):
+        return {'keypoints': kps, 'kk': kk}
+
+    for precision, kernel in (('int8', 'dyn8_mlp'), ('bf16', 'fused_mlp_bf16'),
+                              ('default', None)):
+        os.environ['MONOLOCO_TPU_PRECISION'] = precision
+        net = Loco(model=model, mode='mono', device='cuda')
+        print(f"mono {precision}:", flush=True)
+        responses, metrics, ran, sizes = _serve_in_process(net, mono)
+        if precision == 'default':
+            check(ran == {}, f"default serving launched {ran}")
+            check_default_responses(net, responses, sizes, kps, kk)
+            continue
+        check(ran.get(kernel, 0) > 0, f"mono {precision}: {kernel} never launched")
+        if precision == 'bf16':
+            check(ran.get(kernel) == metrics['dispatches'] and 'dyn8_mlp' not in ran,
+                  f"bf16: {ran} for {metrics['dispatches']} dispatches")
+        else:
+            check(metrics['int8_dispatches'] > 0, "int8: no dispatch routed")
+        counts[kernel] = counts.get(kernel, 0) + ran.get(kernel, 0)
+        rel = _rel_dev(responses, ref)
+        print(f"  distances against float32 Loco: mean relative deviation {rel:.3e} (budget "
+              f"{DYN8_BUDGET if precision == 'int8' else BF16_BUDGET})")
+        check(rel < (DYN8_BUDGET if precision == 'int8' else BF16_BUDGET),
+              f"served {precision} distances outside the budget")
+
+    # Stereo: 16 left and 16 right poses a request (256 pairing rows).
+    s_model = os.path.join(tmp, f'monstereo_serve_h{HIDDEN}.pkl')
+    save_checkpoint(s_model, s_params, s_bn, meta={'seed': SEED + 2})
+    rng = np.random.default_rng(SEED + 17)
+    right = np.asarray(kps, np.float32).copy()
+    right[:, 0, :] -= (BF / rng.uniform(5, 40, size=len(right)))[:, None]
+    right = right.tolist()
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    s_ref = Loco(model=s_model, mode='stereo', device='cuda').forward(kps, kk, right)
+    folded = fold_eval_params(_to_cuda(s_params), _to_cuda(s_bn))
+    with torch.inference_mode():
+        rows, _ = preprocess_monstereo(*(torch.tensor(np.asarray(a, np.float32), device='cuda')[None]
+                                         for a in (kps, right, kk)))
+        raw = fused_loco_forward_dyn8_auto(pack_folded_weights_w8(folded),
+                                           rows.reshape(-1, STEREO_IN).contiguous())
+    choice8 = torch.argmax(raw.reshape(len(kps), len(right), STEREO_OUT)[..., -1], dim=1)
+    same = (choice8.cpu().numpy() == np.asarray(s_ref['aux_idx']).reshape(-1))
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
+    net = Loco(model=s_model, mode='stereo', device='cuda')
+    print("stereo int8:", flush=True)
+    responses, metrics, ran, _ = _serve_in_process(
+        net, lambda c, i: {'keypoints': kps, 'keypoints_r': right, 'kk': kk})
+    check(ran.get('dyn8_mlp', 0) > 0 and metrics['int8_dispatches'] > 0,
+          "stereo int8: dyn8 never launched")
+    counts['dyn8_mlp'] += ran.get('dyn8_mlp', 0)
+    check(same.any(), "int8 and float32 never choose the same right pose")
+    d = np.stack([np.asarray(r['outputs']['d'], np.float64).reshape(-1) for _, _, r in responses])
+    d32 = np.asarray(s_ref['d'], np.float64).reshape(-1)
+    rel = float(np.abs(d[:, same] - d32[same]).mean() / np.abs(d32[same]).mean())
+    print(f"  right pose chosen differently (dyn8 vs float32) for {int((~same).sum())} of "
+          f"{same.size} left poses; distances where the choice agrees: mean relative deviation "
+          f"{rel:.3e} (budget {DYN8_BUDGET})")
+    check(rel < DYN8_BUDGET, "served stereo int8 distances outside the dyn8 budget")
+    return counts
+
+
+def phase_serve_tools():
+    """bench_serve (int8, default, --direct --sweep), bench_latency and
+    bench_int8_crossover as a user runs them; returns the launch counts."""
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.tools import bench_int8_crossover, bench_latency, bench_serve
+    print("== phase 17: the serving tools (bench_serve, bench_latency, bench_int8_crossover)",
+          flush=True)
+    _zero_launches()
+    closed = ['--clients', '32', '--requests', '20', '--dets', '16']
+    for precision, extra in (('int8', ['--expect-int8']), ('default', []), ('bf16', [])):
+        os.environ['MONOLOCO_TPU_PRECISION'] = precision
+        print(f"bench_serve {' '.join(closed + extra)} under {precision}:", flush=True)
+        rec, = bench_serve.main(closed + extra)
+        check(np.isfinite(rec['value']) and rec['value'] > 0, "bench_serve: bad requests/s")
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
+    direct = ['--direct', '--sweep', '500,2000,8000', '--duration', '2', '--dets', '16',
+              '--expect-int8']
+    print(f"bench_serve {' '.join(direct)} under int8:", flush=True)
+    records = bench_serve.main(direct)
+    check(len(records) == 4 and all(r['ok'] > 0 for r in records[:3]), "direct sweep records")
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'default'
+    records = bench_latency.main(['--batches', '1,16,256,4096'])
+    for rec in records[1:]:
+        check(np.isfinite(rec['checksum']), f"bench_latency {rec['precision']}: bad checksum")
+        kernel = {'default': None, 'bf16': 'fused_mlp_bf16', 'int8': 'dyn8_mlp'}[rec['precision']]
+        check(rec['launches'].get(kernel, 0) > 0 if kernel else rec['launches'] == {},
+              f"bench_latency {rec['precision']}: launches {rec['launches']}")
+    records = bench_int8_crossover.main(['--rows', CROSSOVER_ROWS])
+    for rec in records[:-1]:
+        check(all(np.isfinite(v) for v in rec['checksum'].values()),
+              f"crossover at {rec['rows']} rows: bad checksum")
+        check(rec['launches']['dyn8'].get('dyn8_mlp', 0) > 0
+              and rec['launches']['bf16'].get('fused_mlp_bf16', 0) > 0
+              and rec['launches']['f32'] == {}, f"crossover launches {rec['launches']}")
+    return dict(launches)
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
 
@@ -1300,6 +1646,10 @@ def main():
         for key, n in counts.items():
             main_launches[key] = main_launches.get(key, 0) + n
     phase_keypoints_profile(main_dir.name)
+    phase_serve_entry(main_dir.name)
+    for counts in (phase_serve_kernels(main_dir.name, m_params, m_bn), phase_serve_tools()):
+        for key, n in counts.items():
+            main_launches[key] = main_launches.get(key, 0) + n
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']

@@ -127,28 +127,31 @@ def bench_keypoints(batch, device):
     return keypoints.to(device), torch.tensor(KITTI_KK, dtype=torch.float32, device=device)
 
 
+def chained_call(serve, keypoints, kk, scan_iters):
+    """One timed call: `serve(keypoints, kk)` -> outputs, chained
+    `scan_iters` times through the data, ended by the one host fetch of the
+    checksum, which it returns. Call it under torch.inference_mode."""
+    carry = torch.zeros((), device=keypoints.device)
+    total = torch.zeros((), device=keypoints.device)
+    for _ in range(scan_iters):
+        outs = serve(keypoints + carry * 1e-9, kk)
+        total = total + sum(o.sum() for o in outs)
+        carry = outs[0][0, 3]
+    return float(carry + total)
+
+
 def time_serving(serve, keypoints, kk, scan_iters, reps=5):
     """Time `serve(keypoints, kk)` -> outputs, chained `scan_iters` times per
     call. Returns (median seconds per call, checksum of the last call,
     seconds of the warm-up call)."""
-
-    def chained():
-        carry = torch.zeros((), device=keypoints.device)
-        total = torch.zeros((), device=keypoints.device)
-        for _ in range(scan_iters):
-            outs = serve(keypoints + carry * 1e-9, kk)
-            total = total + sum(o.sum() for o in outs)
-            carry = outs[0][0, 3]
-        return float(carry + total)          # the one host fetch
-
     with torch.inference_mode():
         t0 = time.perf_counter()
-        checksum = chained()
+        checksum = chained_call(serve, keypoints, kk, scan_iters)
         warm_s = time.perf_counter() - t0
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            checksum = chained()
+            checksum = chained_call(serve, keypoints, kk, scan_iters)
             times.append(time.perf_counter() - t0)
     return statistics.median(times), checksum, warm_s
 

@@ -18,9 +18,13 @@ MLP routing (`_mlp_forward`), as in the JAX package off the TPU:
    operands (exact products, f32 sums), the same function without a kernel;
  - tensorfloat32: the f32 folded forward with TF32 on around the MLP only.
 K^-1 and decode stay f32 under every precision.
-`_INT8_MIN_ROWS = 512` is INHERITED from the JAX package, where it was the
-measured dyn8/bf16 crossover on a TPU v5e. It has not been measured on the
-H100 (MONOLOCO_TPU_INT8_MIN_ROWS overrides it).
+`_INT8_MIN_ROWS = 16` is the crossover measured on an NVIDIA H100 80GB HBM3
+at a 700 W power limit by `monoloco_tpu_torch/tools/bench_int8_crossover.py`
+(the whole serving program, dyn8 against the f32 path it replaces, 16 to
+131072 rows): in two runs dyn8 won at every measured row count, the
+smallest being 16 (1.04-1.26x up to 2048 rows, where both are bound by the
+host's launches; 1.95-2.40x at 8192, 7.1x at 131072). The JAX package's 512 was a TPU v5e's
+dyn8/bf16 crossover. MONOLOCO_TPU_INT8_MIN_ROWS overrides it.
 
 A stereo dispatch has m x r rows (B x m x r in a batch), so it crosses the
 floor sooner than a mono one.
@@ -68,7 +72,8 @@ from .decode import (extract_outputs, extract_outputs_mono, laplace_sampling,
 from .preprocess import preprocess_monoloco, preprocess_monstereo
 
 N_SAMPLES = 100
-_INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '512'))
+# The measured dyn8-vs-f32 crossover on the H100 (module docstring).
+_INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '16'))
 
 
 def _int8_routes(weights, n_rows):
@@ -166,6 +171,9 @@ class Loco:
         self.n_stage = int(self.params['stages']['w1']['w'].shape[0])
         self.folded = fold_eval_params(self.params, self.bn_state, arch=self.arch)
         self.precision = serving_precision()
+        # The spelling as given (serve's /healthz reports it, as the JAX
+        # server reports its `utils.precision._RAW`).
+        self.precision_raw = os.environ.get('MONOLOCO_TPU_PRECISION', 'default')
         # Weights are stored f32 (the JAX package casts to bf16 only on a
         # TPU); under int8 the dyn8 weights and under bfloat16 the K1-bf16
         # weights are packed once, here, for mono and the stereo pairing
@@ -180,7 +188,9 @@ class Loco:
         if self.precision == 'bfloat16' and kernel_width:
             self.mlp_weights['packed_bf16'] = pack_folded_weights(self.folded, torch.bfloat16)
         # Which MLP path each dispatch ran: the int8 kernel only engages at
-        # >= _INT8_MIN_ROWS padded rows.
+        # >= _INT8_MIN_ROWS padded rows. One count a call of `forward` or
+        # `forward_batch_async`, its MC dispatch included, as the JAX engine
+        # counts them; serve's /healthz and /metrics export both.
         self.n_dispatches = 0
         self.n_dispatches_int8 = 0
 

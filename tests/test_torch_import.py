@@ -6,9 +6,10 @@ This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
 CPU slice once (json-only predict on fixture copies, mono and stereo, f32
 and int8, mono with MC dropout and both activities, f32 and bf16, and
---mode keypoints), runs each bench leg, ablation variant and the roofline
-tool's rows once at a toy size, and then asserts that none of jax, optax,
-matplotlib and PIL is in sys.modules.
+--mode keypoints), runs each bench leg, ablation variant, the roofline
+tool's rows and the latency and crossover tools once at a toy size, serves
+one request over HTTP, and then asserts that none of jax, optax, matplotlib
+and PIL is in sys.modules.
 """
 
 import os
@@ -39,7 +40,7 @@ _SCRIPT = textwrap.dedent("""
                         dst + '.pifpaf.json')
         args = ['predict', '--glob', os.path.join(tmp, '*.png'), '--model', model,
                 '--calibration', 'kitti', '--disable-cuda', '--output_types', 'json']
-        net = run.main(args + ['-o', os.path.join(tmp, 'f32')])
+        net = run_net = run.main(args + ['-o', os.path.join(tmp, 'f32')])
         assert net.n_dispatches == 1 and net.n_dispatches_int8 == 0
         os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
         engine._INT8_MIN_ROWS = 8
@@ -88,6 +89,24 @@ _SCRIPT = textwrap.dedent("""
     for variant, mlp in bench_pallas_int8.build_mlps(folded).items():
         bench_pallas_int8.measure_variant(variant, mlp, keypoints, kk, 1)
     assert len(bench_roofline.measure_rows(batch=16, peak_n=64, device='cpu', reps=1)) == 4
+    from monoloco_tpu_torch.tools import bench_int8_crossover, bench_latency
+    assert len(bench_latency.measure(folded, [4], reps=1, warmup=0, device='cpu')) == 4
+    bench_int8_crossover.measure_rows(bench_int8_crossover.build_paths(folded), 16, reps=1,
+                                      scan_iters=1, device='cpu')
+    # The server: one request over HTTP to a CPU engine, and /healthz.
+    import threading, urllib.request
+    from monoloco_tpu_torch.serve import Server
+    srv = Server(run_net, port=0)
+    srv.warmup()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    body = json.dumps({'keypoints': [[[100.0] * 17, [200.0] * 17, [1.0] * 17]],
+                       'kk': [[718., 0., 600.], [0., 718., 180.], [0., 0., 1.]]}).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            f'http://127.0.0.1:{srv.port}/v1/predict', data=body), timeout=60) as resp:
+        assert len(json.loads(resp.read())['outputs']['xyzd']) == 1
+    with urllib.request.urlopen(f'http://127.0.0.1:{srv.port}/healthz', timeout=60) as resp:
+        assert json.loads(resp.read())['status'] == 'ok'
+    srv.shutdown()
     print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib', 'PIL'))
@@ -112,6 +131,9 @@ def test_port_imports_and_runs_without_jax():
             'monoloco_tpu_torch.tools.bench_pallas_int8',
             'monoloco_tpu_torch.tools.bench_pallas_crossover',
             'monoloco_tpu_torch.tools.bench_roofline', 'monoloco_tpu_torch.activity',
+            'monoloco_tpu_torch.serve', 'monoloco_tpu_torch.tools.bench_serve',
+            'monoloco_tpu_torch.tools.bench_latency',
+            'monoloco_tpu_torch.tools.bench_int8_crossover',
             'monoloco_tpu_torch.visuals.printer', 'monoloco_tpu_torch.visuals.pifpaf_show'} <= names
 
 
