@@ -93,8 +93,31 @@ to the CPU):
     500,2000,8000 --duration 2` under int8; `tools.bench_latency --batches
     1,16,256,4096` (default, bf16, int8); `tools.bench_int8_crossover` at 16
     to 131072 rows. Every JSON line printed, every checksum finite.
+ 18. KITTI txt generation and ALE/ALP evaluation through the entry point:
+    a hard-mode synthetic KITTI root (seed 1, 3769 val scenes, no images,
+    `tools.make_synthetic_kitti`), then `run.main(['eval', '--generate',
+    ...])` with phase 4's checkpoint at float32, int8 and bf16 (64-image
+    chunks, one dispatch each: every int8 chunk launches dyn8, every bf16
+    chunk K1-bf16, float32 nothing), a JSON line per run (the entry
+    point's wall and images/s, generation and EvalKitti together,
+    dispatches, launches, ALE/ALP); the three trees hold the same files,
+    rows and detections, int8 and bf16 distances within 0.02 mean relative
+    of float32's. The int8 run is under torch.profiler for the device's
+    busy share. Then MonStereo (phase 9's weights, `--mode stereo`) over the
+    same 3769 pairs at float32 and int8: distances within the dyn8 budget
+    where both chose the same right pose (GenerateKitti's `aux_idx`), the
+    share that did not printed.
+ 19. dyn8 and K1-bf16 against their plain versions (PERF.md section 2's
+    rules) on the padded K^-1 rows of phase 18's 64-image chunk with the
+    most detections an image, and their times there beside the f32 MLP's.
+ 20. The int8 and bf16 end-metric A/B: `tools.eval_parity` (three
+    interpreters, float32, int8, bf16) on the JAX-trained byte-compat
+    checkpoint (hidden 128, trained on easy-mode seed 11) over an easy-mode
+    root of seed 12, 3769 val scenes: int8 and bf16 ALE (all) within 2% of
+    float32's, each ALP gate within 1 point, every chunk through its kernel.
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12, 13, 16 and 17, each with every count set to 0 just before it); a count is one
+8, 9, 11, 12, 13, 16, 17, 18 and 20, each with every count set to 0 just
+before it; phase 20's from its legs' own processes); a count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
 2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
 entry has its time, its plain version's, the bound (the larger of its
@@ -109,6 +132,7 @@ CUDA cores (67 TFLOP/s). The line before the last is the kernel report
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -171,6 +195,12 @@ BF16_BUDGET = 0.02         # bf16 dds_pred vs float32, mean relative
 SERVE_IM_SIZE = (1238, 374)        # phases 15-16: the fixture as a serve request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_DETS = 64, 8, 16
 CROSSOVER_ROWS = '16,32,64,128,256,512,1024,2048,8192,131072'
+GEN_TRAIN, GEN_VAL = 16, 3769      # phases 18-20: KITTI's validation split, in scenes
+GEN_CHUNK = 64                     # GenerateKitti's images a dispatch
+GEN_PRECISIONS = ('float32', 'int8', 'bf16')
+AB_SEED = 12               # phase 20's dataset; the checkpoint was trained on seed 11
+AB_ALE_PCT = 2.0           # phase 20: int8 and bf16 ALE (all) within 2% of float32's,
+AB_ALP_POINTS = 1.0        # and each ALP gate within 1 point
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -1555,6 +1585,198 @@ def phase_serve_tools():
     return dict(launches)
 
 
+def _generate_eval(model, precision, mode='mono', profiled=False):
+    """`eval --generate --dir_ann annotations --model <model>` through the
+    entry point, in the working directory, at `precision`, every launch
+    count set to 0 just before; the txt tree is copied aside. With
+    `profiled` the run is under torch.profiler, for the device's busy share.
+    Returns (the record printed, the tree's directory, the GenerateKitti)."""
+    from torch.profiler import ProfilerActivity, profile
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.tools.eval_parity import extract_metrics
+    os.environ['MONOLOCO_TPU_PRECISION'] = precision
+    _zero_launches()
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        gen, ev = run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model', model,
+                            '--mode', mode])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ran = {k: n for k, n in launches.items() if n}
+    tree = f'txt_{mode}_{precision}'
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(os.path.join('data', 'kitti', gen.net), tree)
+    n_images = len(os.listdir(tree))
+    net = gen.model
+    rec = {'phase': 18, 'mode': mode, 'precision': precision, 'images': n_images,
+           'wall_s': wall, 'images_per_s': n_images / wall, 'dispatches': net.n_dispatches,
+           'dispatches_int8': net.n_dispatches_int8, 'launches': ran,
+           **extract_metrics(ev, gen.net)}
+    if profiled:
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        rec['device_busy_s'] = busy
+        rec['device_busy_share'] = busy / wall if busy else 'not measured'
+    print(json.dumps(rec), flush=True)
+    chunks = -(-n_images // GEN_CHUNK)
+    check(net.n_dispatches == chunks, f"{mode} {precision}: {net.n_dispatches} dispatches for "
+                                      f"{chunks} chunks")
+    kernel = {'int8': 'dyn8_mlp', 'bf16': 'fused_mlp_bf16'}.get(precision)
+    check(ran == ({kernel: chunks} if kernel else {}),
+          f"{mode} {precision}: launches {ran} for {chunks} chunks")
+    check(net.n_dispatches_int8 == (chunks if precision == 'int8' else 0),
+          f"{mode} {precision}: {net.n_dispatches_int8} int8 dispatches of {chunks}")
+    return rec, tree, gen
+
+
+def _tree_distances(tree):
+    """Per txt file (name order) the distance of each row, the norm of xyz."""
+    out = []
+    for name in sorted(os.listdir(tree)):
+        with open(os.path.join(tree, name)) as f:
+            out.append(np.array([np.linalg.norm(np.array(line.split()[11:14], float))
+                                 for line in f]))
+    return out
+
+
+def _stereo_same_choice(gen_a, gen_b, tree):
+    """Rows (in tree order) whose right pose both generations chose alike."""
+    return np.concatenate([gen_a.aux_idx[name[:-4]] == gen_b.aux_idx[name[:-4]]
+                           for name in sorted(os.listdir(tree))])
+
+
+def phase_generate(tmp, model, s_params, s_bn):
+    """KITTI txt generation and ALE/ALP evaluation at full volume through the
+    entry point, mono at float32, int8 (under torch.profiler) and bf16,
+    stereo at float32 and int8; returns (the dataset's root, the launch
+    counts)."""
+    from monoloco_tpu_torch.models import save_checkpoint
+    from monoloco_tpu_torch.tools import eval_parity, make_synthetic_kitti
+    print(f"== phase 18: eval --generate + EvalKitti through the entry point, {GEN_VAL} "
+          f"val scenes (hard mode), {GEN_CHUNK}-image chunks", flush=True)
+    root = os.path.join(tmp, 'kitti_hard')
+    t0 = time.perf_counter()
+    make_synthetic_kitti.make_dataset(root, n_train=GEN_TRAIN, n_val=GEN_VAL, seed=1,
+                                      hard=True, images=False)
+    print(f"dataset: {GEN_VAL} val scenes, hard mode, seed 1, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    s_model = os.path.join(tmp, 'monstereo_h1024.pkl')
+    save_checkpoint(s_model, s_params, s_bn, meta={'seed': SEED + 2})
+    counts = {}
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        mono = {p: _generate_eval(model, p, profiled=p == 'int8') for p in GEN_PRECISIONS}
+        for p in GEN_PRECISIONS[1:]:
+            diff = eval_parity.txt_tree_diff(mono['float32'][1], mono[p][1])
+            print(f"mono {p} vs float32: {json.dumps(diff)} (budget {DYN8_BUDGET} mean)")
+            check(0 < diff['mean_rel_dd'] < DYN8_BUDGET,
+                  f"mono {p}: distance deviation outside the budget")
+            kernel = 'dyn8_mlp' if p == 'int8' else 'fused_mlp_bf16'
+            counts[kernel] = counts.get(kernel, 0) + mono[p][0]['launches'].get(kernel, 0)
+
+        stereo = {p: _generate_eval(s_model, p, mode='stereo') for p in ('float32', 'int8')}
+        (_, t32, g32), (_, t8, g8) = stereo['float32'], stereo['int8']
+        eval_parity.txt_tree_diff(t32, t8)          # same files, rows, detections
+        same = _stereo_same_choice(g32, g8, t32)
+        d32, d8 = np.concatenate(_tree_distances(t32)), np.concatenate(_tree_distances(t8))
+        rel = float((np.abs(d8 - d32)[same] / d32[same]).mean())
+        print(f"stereo int8 vs float32 over {len(os.listdir(t32))} pairs: right pose chosen "
+              f"differently for {int((~same).sum())} of {same.size} left poses; distances "
+              f"where the choice agrees: mean relative deviation {rel:.3e} "
+              f"(budget {DYN8_BUDGET})", flush=True)
+        check(same.mean() > 0.9 and rel < DYN8_BUDGET,
+              "stereo int8 distances outside the dyn8 budget")
+        counts['dyn8_mlp'] += stereo['int8'][0]['launches'].get('dyn8_mlp', 0)
+    finally:
+        os.chdir(old)
+    return root, counts
+
+
+def phase_generate_chunk(root, model, kernels, folded):
+    """dyn8 and K1-bf16 against their plain versions on the padded rows
+    (after K^-1) of the 64-image chunk of phase 18 with the most detections
+    an image, as `forward_batch_async` pads them, with times at that shape."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.eval import GenerateKitti
+    from monoloco_tpu_torch.models import folded_forward
+    from monoloco_tpu_torch.network import preprocess_monoloco
+    from monoloco_tpu_torch.network.engine import _bucket
+    t0 = time.perf_counter()
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+        gen = GenerateKitti(run.cli(['eval', '--generate', '--dir_ann', 'annotations',
+                                     '--model', model]))
+        loaded = []
+        for basename in sorted(gen.set_basename):
+            _, keypoints, kk, _, _, _ = gen._load_image(basename, False)
+            if keypoints:
+                loaded.append((np.asarray(keypoints, np.float32), np.asarray(kk, np.float32)))
+    finally:
+        os.chdir(old)
+    chunks = [loaded[i:i + GEN_CHUNK] for i in range(0, len(loaded), GEN_CHUNK)]
+    chunk = max(chunks, key=lambda c: (len(c), max(len(k) for k, _ in c)))
+    m_bucket = _bucket(max(len(k) for k, _ in chunk))
+    kps = np.zeros((len(chunk), m_bucket, 3, 17), np.float32)
+    kks = np.zeros((len(chunk), 3, 3), np.float32)
+    for i, (k, kk) in enumerate(chunk):
+        kps[i, :len(k)] = k
+        kks[i] = kk
+    x = preprocess_monoloco(torch.from_numpy(kps).cuda(), torch.from_numpy(kks).cuda())
+    x = x.reshape(-1, IN_DIM).contiguous()
+    print(f"== phase 19: dyn8 and K1-bf16 vs plain on a generate chunk: {len(chunk)} images x "
+          f"{m_bucket} detections = {x.shape[0]} rows", flush=True)
+    f32_ref = folded_forward(folded, x)
+    worst, ms = {}, {}
+    for name, rule in (('dyn8_mlp', 'int8'), ('fused_mlp_bf16', 'bf16')):
+        entry, plain, packed = kernels[name]
+        worst[name] = _compare(f"{name} chunk", rule, entry(packed, x), plain(packed, x), f32_ref)
+        med, lo, hi = _median_ms(lambda: entry(packed, x))
+        ms[name] = med
+        print(f"  {name} at {x.shape[0]} rows: {med:.4f} ms (min {lo:.4f}, max {hi:.4f})")
+    med, lo, hi = _median_ms(lambda: folded_forward(folded, x))
+    ms['f32_folded'] = med
+    print(f"  f32 folded (torch.matmul) at {x.shape[0]} rows: {med:.4f} ms (min {lo:.4f}, "
+          f"max {hi:.4f})", flush=True)
+    print(json.dumps({'phase': 19, 'rows': x.shape[0], 'max_abs_err': worst, 'ms': ms,
+                      'wall_s': time.perf_counter() - t0}), flush=True)
+    return worst
+
+
+def phase_int8_ab(tmp):
+    """`tools.eval_parity` on the JAX-trained byte-compat checkpoint (hidden
+    128) over an easy-mode val set of another seed than its training set's;
+    returns the launch counts of its legs."""
+    from monoloco_tpu_torch.tools import eval_parity, make_synthetic_kitti
+    print(f"== phase 20: int8 and bf16 end-metric A/B (tools.eval_parity), trained checkpoint, "
+          f"{GEN_VAL} val scenes (easy mode, seed {AB_SEED})", flush=True)
+    root = os.path.join(tmp, 'kitti_ab')
+    make_synthetic_kitti.make_dataset(root, n_train=GEN_TRAIN, n_val=GEN_VAL, seed=AB_SEED,
+                                      images=False)
+    rec = eval_parity.main([root, '--model', os.path.join(GOLD, 'model_tpu.pkl')])
+    legs, ref = rec['legs'], rec['legs']['float32']
+    for p, kernel in (('int8', 'dyn8_mlp'), ('bf16', 'fused_mlp_bf16')):
+        leg = legs[p]
+        check(leg['launches'] == {kernel: leg['dispatches']},
+              f"A/B {p}: launches {leg['launches']} for {leg['dispatches']} dispatches")
+        check(leg['dispatches_int8'] == (leg['dispatches'] if p == 'int8' else 0),
+              f"A/B {p}: {leg['dispatches_int8']} int8 dispatches")
+        alp = {g: leg['alp'][g] - ref['alp'][g] for g in ref['alp']}
+        print(f"A/B {p}: ALE (all) {rec['ale_all_delta_pct'][p]:+.4f}% of float32's "
+              f"{ref['ale']['all']:.4f} m; ALP points {alp}; rows "
+              f"{json.dumps(rec['txt_row_diff'][p])}", flush=True)
+        check(abs(rec['ale_all_delta_pct'][p]) <= AB_ALE_PCT
+              and all(abs(v) <= AB_ALP_POINTS for v in alp.values()),
+              f"A/B {p}: end metric outside 2% ALE / 1 point ALP of float32")
+    check(legs['float32']['launches'] == {}, "A/B float32 leg launched a kernel")
+    return {'dyn8_mlp': legs['int8']['launches'].get('dyn8_mlp', 0),
+            'fused_mlp_bf16': legs['bf16']['launches'].get('fused_mlp_bf16', 0)}
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
 
@@ -1648,6 +1870,13 @@ def main():
     phase_keypoints_profile(main_dir.name)
     phase_serve_entry(main_dir.name)
     for counts in (phase_serve_kernels(main_dir.name, m_params, m_bn), phase_serve_tools()):
+        for key, n in counts.items():
+            main_launches[key] = main_launches.get(key, 0) + n
+    model = _main_model(main_dir.name)
+    gen_root, gen_counts = phase_generate(main_dir.name, model, m_params, m_bn)
+    for key, n in phase_generate_chunk(gen_root, model, kernels, folded).items():
+        max_err[key] = max(max_err[key], n)
+    for counts in (gen_counts, phase_int8_ab(main_dir.name)):
         for key, n in counts.items():
             main_launches[key] = main_launches.get(key, 0) + n
     main_dir.cleanup()

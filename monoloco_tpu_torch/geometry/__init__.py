@@ -4,8 +4,23 @@ from .camera import (
     back_correct_angles,
     to_cartesian,
 )
-from .iou import iou_matrix, get_iou_matches, reorder_matches
-from .host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
+from .iou import (
+    iou_matrix,
+    get_iou_matrix,
+    calculate_iou,
+    get_iou_matches,
+    get_iou_matches_matrix,
+    reorder_matches,
+    get_category,
+    open_annotations,
+)
+from .host import (
+    np_get_keypoints,
+    np_pixel_to_camera,
+    np_xyz_from_distance,
+    correct_angle,
+    to_spherical,
+)
 from .stereo import (
     BF,
     average_locations,

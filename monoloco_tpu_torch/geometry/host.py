@@ -4,8 +4,12 @@
 
 Post-processing works on a handful of detections per image, so it stays in
 numpy on the host; `geometry/camera.py` holds the torch twins that run on the
-device inside the forward.
+device inside the forward. `correct_angle` and `to_spherical` are the scalar
+helpers of `monoloco_tpu/geometry/camera.py` that ground-truth parsing calls
+on Python floats.
 """
+
+import math
 
 import numpy as np
 
@@ -79,3 +83,24 @@ def np_laplace_sampling(outputs, n_samples, seed=1):
     rng = np.random.default_rng(seed)
     u = rng.uniform(-0.5 + 1e-12, 0.5, size=(n_samples, mu.shape[0]))
     return mu - bi * np.sign(u) * np.log1p(-2.0 * np.abs(u))
+
+
+def correct_angle(yaw, xyz):
+    """Egocentric (rotation_y) -> allocentric (observation angle), wrapped to
+    [-pi, pi]. Returns (sin(alpha), cos(alpha), alpha)."""
+    correction = math.atan2(float(xyz[0]), float(xyz[2]))
+    alpha = float(yaw) - correction
+    if alpha > math.pi:
+        alpha -= 2 * math.pi
+    elif alpha < -math.pi:
+        alpha += 2 * math.pi
+    return math.sin(alpha), math.cos(alpha), alpha
+
+
+def to_spherical(xyz):
+    """Cartesian -> spherical [r, theta, psi]."""
+    x, y, z = float(xyz[0]), float(xyz[1]), float(xyz[2])
+    r = math.sqrt(x * x + y * y + z * z)
+    theta = math.atan2(z, x)
+    psi = math.acos(y / r)
+    return [r, theta, psi]

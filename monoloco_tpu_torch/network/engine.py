@@ -317,7 +317,7 @@ class Loco:
     def forward_batch_async(self, keypoints_list, kk_list, keypoints_r_list=None, mc=None):
         """Launch one dispatch over many images; returns a zero-arg finalize()
         producing the per-image output dicts (None for an image without
-        detections), identical in layout to `forward`'s, without 'aux_idx'.
+        detections), identical in layout to `forward`'s.
         With n_dropout > 0 on a mono net a second dispatch computes 'epi'
         for the whole batch (`mc`: injected draws over the shared detection
         bucket, see `mc_epistemic`).
@@ -368,7 +368,9 @@ class Loco:
                         kps_r[i, 0] = kps[i, 0]
                         r_mask[i, 0] = True
                 self._count_dispatch(b_bucket * m_bucket * r_bucket)
-                dic_dev, _ = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask), dev(kks))
+                dic_dev, best = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask),
+                                                     dev(kks))
+                dic_dev['aux_idx'] = best.reshape(-1)
             else:
                 self._count_dispatch(b_bucket * m_bucket)
                 kps_dev, kks_dev = dev(kps), dev(kks)

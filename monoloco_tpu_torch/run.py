@@ -1,13 +1,28 @@
-"""CLI entry point: python -m monoloco_tpu_torch.run predict ...
+"""CLI entry point: python -m monoloco_tpu_torch.run predict|eval ...
 
-The predict flags of `monoloco_tpu.run`, so that a JAX predict command line
-runs on the port unchanged. The pifpaf passthroughs (`--checkpoint`,
-`--long-edge`, `--white-overlay`, `--font-size`, `--monocolor-connections`,
+The predict and eval flags of `monoloco_tpu.run`, so that a JAX predict or
+KITTI eval command line runs on the port unchanged, plus `--disable-cuda`
+(without it predict and `eval --generate` need a CUDA card).
+
+predict: the pifpaf passthroughs (`--checkpoint`, `--long-edge`,
+`--white-overlay`, `--font-size`, `--monocolor-connections`,
 `--instance-threshold`, `--seed-threshold`, `--precise-rescaling`,
 `--decoder-workers`) and `--camera` are accepted and inert: the port reads
 precomputed pifpaf JSON and does not run OpenPifPaf. `--webcam` exits
-non-zero with a message, as do `prep`, `train` and `eval`, which are not
-ported yet (use `python -m monoloco_tpu.run` for them).
+non-zero with a message.
+
+eval, from the root of a KITTI layout (`data/kitti/gt`, `data/kitti/calib`,
+`splits/`): `--generate` writes `data/kitti/monoloco_pp/*.txt`
+(`--mode stereo`: `data/kitti/monstereo/`) with GenerateKitti, then
+`--dataset kitti` (the default) scores every method folder present with
+EvalKitti, prints the summary table and writes `data/logs/eval-<stamp>.json`.
+Scoring alone is host code and needs no card. Not ported yet, and refused
+with a message naming the ROADMAP Queue 1 item: `--activity`, `--geometric`,
+`--variance`, `--baselines`, `--save`/`--show` (item 7), `--dataset
+nuscenes` (the Trainer's evaluate, item 6) and `--dp_devices` > 1 (item 9).
+
+`prep` and `train` are not ported yet (use `python -m monoloco_tpu.run` for
+them).
 """
 
 import argparse
@@ -24,7 +39,8 @@ def cli(argv=None):
     subparsers = parser.add_subparsers(help='Different parsers for main actions',
                                        dest='command')
     predict_parser = subparsers.add_parser("predict")
-    for name in ('prep', 'train', 'eval'):
+    eval_parser = subparsers.add_parser("eval")
+    for name in ('prep', 'train'):
         sub = subparsers.add_parser(name, help='not ported yet')
         sub.add_argument('rest', nargs=argparse.REMAINDER)
 
@@ -80,23 +96,101 @@ def cli(argv=None):
     add('--threshold_prob', type=float, default=0.25, help='concordance for samples')
     add('--threshold_dist', type=float, default=2.5, help='min distance of people')
     add('--radii', nargs='+', type=float, default=(0.3, 0.5, 1), help='o-space radii')
+
+    add = eval_parser.add_argument
+    add('--mode', help='mono, stereo', default='mono')
+    add('--dataset', default='kitti', help='datasets to evaluate, kitti or nuscenes')
+    add('--activity', help='evaluate activities (not ported)', action='store_true')
+    add('--geometric', help='to evaluate geometric distance (not ported)', action='store_true')
+    add('--generate', help='create txt files for KITTI evaluation', action='store_true')
+    add('--dir_ann', help='directory of annotations of 2d joints')
+    add('--model', help='path of MonoLoco model to load')
+    add('--joints', help='Json file with input joints to evaluate')
+    add('--n_dropout', type=int, default=0, help='Epistemic uncertainty evaluation')
+    add('--dropout', type=float, default=0.2, help='dropout')
+    add('--hidden_size', type=int, default=1024, help='Number of hidden units in the model')
+    add('--n_stage', type=int, default=3, help='Number of stages in the model')
+    add('--show', help='whether to show statistic graphs (not ported)', action='store_true')
+    add('--save', help='whether to save statistic graphs (not ported)', action='store_true')
+    add('--verbose', help='verbosity of statistics', action='store_true')
+    add('--new', help='new', action='store_true')
+    add('--variance', help='evaluate keypoints variance (not ported)', action='store_true')
+    add('--net', help='Choose network: monoloco, monoloco_p, monoloco_pp, monstereo')
+    add('--baselines', help='whether to evaluate stereo baselines (not ported)',
+        action='store_true')
+    add('--reid_weights', default=None, help='ReID checkpoint for the baselines (not ported)')
+    add('--generate_official', action='store_true',
+        help='whether to add empty txt files for official evaluation')
+    add('--dp_devices', type=int, default=1,
+        help='shard txt generation over N devices (not ported: 1 only)')
+    add('--disable-cuda', dest='disable_cuda', action='store_true',
+        help='run on the CPU; without it --generate needs a CUDA card')
     return parser.parse_args(argv)
+
+
+def _eval_refusal(args):
+    """The message for an eval option the port does not take yet, in the JAX
+    CLI's order of precedence; None when every option given is ported."""
+    if args.activity:
+        return "eval --activity needs eval/eval_activity.py: ROADMAP Queue 1 item 7"
+    if args.geometric:
+        return "eval --geometric needs eval/geom_baseline.py: ROADMAP Queue 1 item 7"
+    if args.variance:
+        return "eval --variance needs eval/eval_variance.py: ROADMAP Queue 1 item 7"
+    if args.baselines:
+        return ("eval --baselines needs the geometric, legacy MonoLoco, stereo pose and ReID "
+                "baselines: ROADMAP Queue 1 items 7 and 8")
+    if args.save or args.show:
+        return "eval --save/--show need visuals/figures.py: ROADMAP Queue 1 item 7"
+    if 'nuscenes' in args.dataset:
+        return "eval --dataset nuscenes runs the Trainer's evaluate: ROADMAP Queue 1 item 6"
+    if args.dp_devices > 1:
+        return "eval --dp_devices > 1 needs device meshes: ROADMAP Queue 1 item 9"
+    return None
+
+
+def evaluate(args):
+    """`eval`: GenerateKitti with --generate, then EvalKitti for --dataset
+    kitti; returns (the GenerateKitti or None, the EvalKitti)."""
+    refusal = _eval_refusal(args)
+    if refusal:
+        raise SystemExit(refusal)
+    if args.dataset != 'kitti':
+        raise ValueError("Option not recognized")
+    gen = None
+    if args.generate:
+        from .eval import GenerateKitti
+        from .ops import launches
+        gen = GenerateKitti(args)
+        gen.run()
+        net = gen.model
+        print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
+              f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
+              f"(precision {net.precision}, device {net.device})")
+    from .eval import EvalKitti
+    kitti_eval = EvalKitti(args)
+    kitti_eval.run()
+    kitti_eval.printer()
+    return gen, kitti_eval
 
 
 def main(argv=None):
     """Parse argv (sys.argv when None) and run; returns predict's engine
-    (None under --mode keypoints)."""
+    (None under --mode keypoints), or eval's (GenerateKitti or None,
+    EvalKitti)."""
     args = cli(argv)
     if args.command == 'predict':
         if args.webcam:
             raise SystemExit("predict --webcam is not ported to the torch package yet")
         from .predict import predict
         return predict(args)
-    if args.command in ('prep', 'train', 'eval'):
+    if args.command == 'eval':
+        return evaluate(args)
+    if args.command in ('prep', 'train'):
         raise SystemExit(f"'{args.command}' is not ported to monoloco_tpu_torch yet "
                          f"(ROADMAP Queue 1): run python -m monoloco_tpu.run "
                          f"{args.command}")
-    raise SystemExit("no command given: python -m monoloco_tpu_torch.run predict ...")
+    raise SystemExit("no command given: python -m monoloco_tpu_torch.run predict|eval ...")
 
 
 if __name__ == '__main__':

@@ -338,7 +338,10 @@ def make_handler(batcher, net, timeout_s=60.0):
             if r.error is not None:
                 self._reply(500, {'error': r.error})
                 return
-            payload = {'outputs': _to_jsonable(r.result)}
+            # The JAX server answers with its forward_batch's keys, which
+            # hold no right pose choice.
+            payload = {'outputs': _to_jsonable({k: v for k, v in r.result.items()
+                                                if k != 'aux_idx'})}
             boxes = req.get('boxes')
             if boxes is not None:
                 dic_out = net.post_process(r.result, boxes, kps.tolist(), kk)

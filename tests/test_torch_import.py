@@ -1,6 +1,7 @@
 """The torch port never imports jax (nor optax, which the JAX package's
-trainer checkpoints reference), and a json-only predict run imports neither
-matplotlib nor Pillow (the card's machine has no matplotlib).
+trainer checkpoints reference), and a json-only predict run and the KITTI
+eval path import neither matplotlib nor Pillow (the card's machine has no
+matplotlib and maybe no Pillow).
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
@@ -8,8 +9,12 @@ CPU slice once (json-only predict on fixture copies, mono and stereo, f32
 and int8, mono with MC dropout and both activities, f32 and bf16, and
 --mode keypoints), runs each bench leg, ablation variant, the roofline
 tool's rows and the latency and crossover tools once at a toy size, serves
-one request over HTTP, and then asserts that none of jax, optax, matplotlib
-and PIL is in sys.modules.
+one request over HTTP, writes a synthetic KITTI root with images, runs `eval
+--generate` and the scoring on it and the eval parity tool (whose legs are
+interpreters of their own), and then asserts that none of jax, jaxlib,
+optax, matplotlib and PIL is in sys.modules (nor tabulate or yaml after the
+imports: EvalKitti imports tabulate only to print its table, where there is
+one).
 """
 
 import os
@@ -29,6 +34,8 @@ _SCRIPT = textwrap.dedent("""
                                                    'monoloco_tpu_torch.')]
     for name in names:
         importlib.import_module(name)
+    # Optional at run time (EvalKitti's table), never loaded by an import.
+    assert not [m for m in sys.modules if m.split('.')[0] in ('tabulate', 'yaml')]
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.network import engine
     here, model = sys.argv[1], sys.argv[2]
@@ -107,6 +114,23 @@ _SCRIPT = textwrap.dedent("""
     with urllib.request.urlopen(f'http://127.0.0.1:{srv.port}/healthz', timeout=60) as resp:
         assert json.loads(resp.read())['status'] == 'ok'
     srv.shutdown()
+    # KITTI txt generation and scoring, and the eval parity tool.
+    from monoloco_tpu_torch.tools import eval_parity, make_synthetic_kitti
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_kitti.make_dataset(tmp, n_train=2, n_val=3, seed=0)
+        assert len(os.listdir(os.path.join(tmp, 'data', 'kitti', 'images_r'))) == 5
+        old = os.getcwd()
+        os.chdir(tmp)
+        try:
+            gen, ev = run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model',
+                                model, '--disable-cuda'])
+            assert len(os.listdir(os.path.join('data', 'kitti', 'monoloco_pp'))) == 3
+            assert os.path.exists(ev.path_results)
+        finally:
+            os.chdir(old)
+        rec = eval_parity.main([tmp, '--model', model, '--disable-cuda'])
+        assert rec['legs']['int8']['dispatches_int8'] == 1
+        assert rec['txt_row_diff']['bf16']['rows'] > 0
     print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib', 'PIL'))
@@ -124,7 +148,7 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert 'LEAKED []' in res.stdout
     n_modules = int(re.search(r'MODULES (\d+)', res.stdout).group(1))
-    assert n_modules >= 23
+    assert n_modules >= 42
     names = set(re.search(r'NAMES (.*)', res.stdout).group(1).split())
     assert {'monoloco_tpu_torch.bench', 'monoloco_tpu_torch.ops.quant',
             'monoloco_tpu_torch.geometry.stereo',
@@ -134,7 +158,11 @@ def test_port_imports_and_runs_without_jax():
             'monoloco_tpu_torch.serve', 'monoloco_tpu_torch.tools.bench_serve',
             'monoloco_tpu_torch.tools.bench_latency',
             'monoloco_tpu_torch.tools.bench_int8_crossover',
-            'monoloco_tpu_torch.visuals.printer', 'monoloco_tpu_torch.visuals.pifpaf_show'} <= names
+            'monoloco_tpu_torch.visuals.printer', 'monoloco_tpu_torch.visuals.pifpaf_show',
+            'monoloco_tpu_torch.eval.generate_kitti', 'monoloco_tpu_torch.eval.eval_kitti',
+            'monoloco_tpu_torch.prep.preprocess_kitti', 'monoloco_tpu_torch.utils.kitti',
+            'monoloco_tpu_torch.utils.misc', 'monoloco_tpu_torch.tools.make_synthetic_kitti',
+            'monoloco_tpu_torch.tools.eval_parity'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

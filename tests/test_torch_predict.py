@@ -98,7 +98,7 @@ def test_image_size_reads_headers_like_pillow(name):
 @pytest.mark.parametrize('argv', [
     ['prep', '--dir_ann', 'x'],
     ['train', '--joints', 'x.json'],
-    ['eval', '--generate'],
+    ['eval', '--activity'],
     [],
 ])
 def test_unported_commands_exit_nonzero(argv):

@@ -213,7 +213,8 @@ def test_stereo_forward_matches_jax(nets, m, r):
 
 def test_forward_batch_matches_jax_on_a_mixed_batch(nets):
     """One image without right poses and one without any poses, as the JAX
-    engine's own test (tests/test_engine.py) mixes them."""
+    engine's own test (tests/test_engine.py) mixes them; each image's right
+    pose choice (`aux_idx`) is the per-image forward's."""
     net, jnet = nets
     kps = [_keypoints(3, seed=1), _keypoints(6, seed=2), np.zeros((0, 3, 17), np.float32),
            _keypoints(2, seed=3)]
@@ -222,9 +223,10 @@ def test_forward_batch_matches_jax_on_a_mixed_batch(nets):
     outs = net.forward_batch(kps, kks, kps_r)
     refs = jnet.forward_batch(kps, kks, kps_r)
     assert outs[2] is None and refs[2] is None
-    for ours, ref in zip(outs, refs):
+    for ours, ref, k, kk, k_r in zip(outs, refs, kps, kks, kps_r):
         if ref is not None:
-            assert 'aux_idx' not in ours
+            alone = net.forward(k, kk, keypoints_r=k_r)
+            np.testing.assert_array_equal(ours.pop('aux_idx'), alone['aux_idx'])
             _assert_stereo_close(ours, ref)
 
 
