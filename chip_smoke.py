@@ -34,9 +34,13 @@ to the CPU):
     a static a8w8 layer (each epilogue, bit for bit, the next layer's int8
     input included).
  7b. K6, `relu_chain` (the roofline probe's 8 bf16 relu layers on
-    csrc/wgmma_layer.cu), against `relu_chain_plain` at 131072 x 1024 x 8
-    under the bf16 rule, rows independent. Phase 6 times it beside its plain
-    version and the `torch.matmul` chain, launch by launch.
+    csrc/relu_chain.cu), against `relu_chain_plain` at 131072 x 1024 x 8
+    under the bf16 rule; against the path it ran on before (csrc/
+    wgmma_layer.cu's relu layer with a zero bias) bit for bit, or under the
+    bf16 rule with the difference printed, there and at m = 1, 127, 129 and
+    257; rows independent at m = 512 and 131071. Phase 6 times it beside
+    that path, its plain version and the `torch.matmul` chain, in turns,
+    and both kernels launch by launch.
  8. The serving bench and the ablation tools, as a user runs them:
     `monoloco_tpu_torch.bench` unpinned (bf16 + dyn8) and pinned int8-a8,
     int8-xla and f32; the six variants of `tools.bench_pallas_int8` and its
@@ -523,13 +527,17 @@ def phase_times(kernels, folded, smi):
 
 
 def time_relu_chain():
-    """K6 at 131072 x 1024 x 8 beside its plain version and the
-    `torch.matmul` chain, median of 7 in turns; its launch-by-launch device
-    time and peak memory. Returns the medians by name."""
-    from monoloco_tpu_torch.ops import relu_chain, relu_chain_plain
+    """K6 at 131072 x 1024 x 8 beside the path it ran on before (the
+    wgmma_layer path: csrc/wgmma_layer.cu's relu layer with a zero bias),
+    its plain version and the `torch.matmul` chain, median of 7 in turns;
+    the launch-by-launch device time of the kernel and of the wgmma_layer
+    path, and the kernel's peak memory. Returns the medians by name."""
+    from monoloco_tpu_torch.ops import fused_mlp, relu_chain, relu_chain_plain
     from monoloco_tpu_torch.tools.bench_roofline import relu_chain_library
     x, ws = relu_chain_inputs()
     paths = {'relu_chain_bf16 kernel': lambda v: relu_chain(v, ws),
+             'relu_chain_bf16 wgmma_layer path':
+                 lambda v: fused_mlp._relu_chain_wgmma_layer(v, ws),
              'relu_chain_bf16 plain': lambda v: relu_chain_plain(v, ws),
              'relu chain (torch.matmul)': lambda v: relu_chain_library(v, ws)}
     times = {name: [] for name in paths}
@@ -546,6 +554,8 @@ def time_relu_chain():
         print(f"{name} at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}: median {med[name]:.4f} ms "
               f"over {len(v)} runs (min {min(v):.4f}, max {max(v):.4f})")
     launch_breakdown('relu_chain_bf16', lambda p, v: relu_chain(v, p), ws, x, in_order=True)
+    launch_breakdown('relu_chain_bf16 wgmma_layer path',
+                     lambda p, v: fused_mlp._relu_chain_wgmma_layer(v, p), ws, x, in_order=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -994,14 +1004,18 @@ def relu_chain_inputs():
 
 
 def phase_relu_chain():
-    """K6 (relu_chain) against relu_chain_plain at 131072 x 1024 x 8, under
-    the bf16 rule scaled to the outputs: the chain's outputs reach about 7
-    (N(0, 2 / H) weights keep their second moment), where one bf16 ulp is
-    3e-2 and a flip or two reaches the rule's 5e-2, so both are divided by
-    the plain version's largest output first.
-    The f32 chain (no bf16 rounding) is the third party. Returns the max
-    abs error unscaled."""
-    from monoloco_tpu_torch.ops import launches, relu_chain, relu_chain_plain
+    """K6 (relu_chain, csrc/relu_chain.cu) against relu_chain_plain at
+    131072 x 1024 x 8, under the bf16 rule scaled to the outputs: the
+    chain's outputs reach about 7 (N(0, 2 / H) weights keep their second
+    moment), where one bf16 ulp is 3e-2 and a flip or two reaches the rule's
+    5e-2, so both are divided by the plain version's largest output first.
+    The f32 chain (no bf16 rounding) is the third party. Then against the
+    wgmma_layer path (csrc/wgmma_layer.cu's relu layer, the same wgmma
+    shape and k order): bit for bit, or under the same rule with the difference printed,
+    there and at m = 1, 127, 129, 257 (a row block without rows in the last
+    cluster at 1 and 257); rows bit-equal at m = 512 and a ragged 131071.
+    Returns the max abs error against the plain version, unscaled."""
+    from monoloco_tpu_torch.ops import fused_mlp, launches, relu_chain, relu_chain_plain
     print(f"== phase 7b: relu_chain (K6) vs plain at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}",
           flush=True)
     x, ws = relu_chain_inputs()
@@ -1019,9 +1033,25 @@ def phase_relu_chain():
     print(f"relu_chain_bf16: largest output {scale:.4e}, max abs err {worst:.4e} unscaled")
     _compare('relu_chain_bf16 / max|plain|', 'bf16', out.float() / scale, ref / scale,
              f32 / scale)
-    small = x[:512].contiguous()
-    check(torch.equal(relu_chain(small, ws), out[:512]), "relu_chain: rows depend on the batch")
-    print("relu_chain_bf16: rows bit-equal at m = 512")
+    for n in (TIMING_ROWS, 1, 127, 129, 257):
+        xs = x[:n].contiguous()
+        ours = out if n == TIMING_ROWS else relu_chain(xs, ws)
+        old = fused_mlp._relu_chain_wgmma_layer(xs, ws)
+        torch.cuda.synchronize()
+        if torch.equal(ours, old):
+            print(f"relu_chain_bf16 vs the wgmma_layer path at m = {n}: bit-equal")
+            continue
+        diff = (ours.float() - old.float()).abs()
+        print(f"relu_chain_bf16 vs the wgmma_layer path at m = {n}: max abs "
+              f"{float(diff.max()):.4e}, {float((diff > 0).float().mean()):.4%} of the outputs "
+              "differ")
+        plain = ref[:n] if n == TIMING_ROWS else relu_chain_plain(xs, ws).float()
+        _compare(f'relu_chain_bf16 vs wgmma_layer / max|plain| m={n}', 'bf16',
+                 ours.float() / scale, old.float() / scale, plain / scale)
+    for n in (512, TIMING_ROWS - 1):
+        check(torch.equal(relu_chain(x[:n].contiguous(), ws), out[:n]),
+              f"relu_chain: rows depend on the batch (m = {n})")
+    print(f"relu_chain_bf16: rows bit-equal at m = 512 and {TIMING_ROWS - 1}")
     return worst
 
 
@@ -1790,7 +1820,7 @@ REPLACES = {'dyn8_mlp': 'monoloco_tpu/ops/fused_mlp.py:474',
             'int8_static_mlp': 'monoloco_tpu/ops/fused_mlp.py:367',
             'w8_mlp': 'monoloco_tpu/ops/fused_mlp.py:367'}
 SOURCES = {'dyn8_mlp': 'wgmma_layer_kmajor.cu', 'fused_mlp_bf16': 'wgmma_layer.cu',
-           'relu_chain_bf16': 'wgmma_layer.cu',
+           'relu_chain_bf16': 'relu_chain.cu',
            'fused_mlp_f32': 'wgmma_layer_kmajor.cu', 'int8_static_mlp': 'wgmma_layer_kmajor.cu',
            'w8_mlp': 'wgmma_layer.cu'}
 # The type of each kernel's products and how many passes of them it makes

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('wgmma_layer.cu', 'wgmma_layer_kmajor.cu')
+_SOURCES = ('wgmma_layer.cu', 'wgmma_layer_kmajor.cu', 'relu_chain.cu')
 _HEADERS = ('mlp_common.cuh', 'hopper_common.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -59,6 +59,7 @@ def _declare(lib):
         'transpose_int8_forward': [ptr] * 2 + [i32] * 2 + [ptr],
         'transpose_split_tf32_forward': [ptr] * 3 + [i32] * 2 + [ptr],
         'split_tf32_forward': [ptr] * 3 + [size, ptr],
+        'relu_chain_layer_forward': [ptr] * 3 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks for the layer kernels of wgmma_layer.cu
-// and wgmma_layer_kmajor.cu: shared-memory addresses, mbarriers, 2-D TMA
-// loads, wgmma descriptors and the wgmma shapes the kernels use, written as
+// Hopper (sm_90a) building blocks for the layer kernels of wgmma_layer.cu,
+// wgmma_layer_kmajor.cu and relu_chain.cu: shared-memory addresses,
+// mbarriers, 2-D TMA loads, wgmma descriptors and the wgmma shapes the
+// kernels use; for relu_chain.cu also clusters (rank, barrier, remote
+// arrivals), multicast TMA loads, TMA stores and stmatrix; all written as
 // inline PTX; and, on the host, the TMA descriptors' encoding.
 //
 // Swizzled operands: a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes each
@@ -262,6 +264,102 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// --- clusters, TMA multicast and store, stmatrix (relu_chain.cu) ------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// a __syncthreads() across the cluster, which also orders shared-memory
+// writes (and barrier initialisations) before the peers' later accesses.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrive on the barrier at `bar`'s offset in the shared memory of block
+// `cta` of the cluster. The arrival keeps mbarrier.arrive's default
+// semantics (release at CTA scope), as for a local barrier: the caller has
+// waited for the wgmma that read the stage, so the peer's next TMA write
+// cannot overtake those reads. A .release.cluster arrival cost relu_chain.cu
+// a third of its speed (PERF.md).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// tma_load_2d into the same offset `dst` of every block in `cta_mask` (bit
+// i: cluster rank i); each destination's barrier at `bar`'s offset gets the
+// box's bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const void* map, uint64_t* bar,
+                                                      int c0, int c1, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(cta_mask)
+      : "memory");
+}
+
+// Copy the shared-memory box at `src` to (c0 innermost, c1) of `map`;
+// elements outside the map's bounds are not written. Tracked by the issuing
+// thread's bulk groups (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const void* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared-memory source (the buffer may then be written again) ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... or are still in flight at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (a TMA store reading them).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices to shared memory: lanes 8 i .. 8 i + 7 give the
+// 16-byte row addresses of matrix i, and each lane's r[i] holds two
+// neighbouring values of row lane / 4 of matrix i, columns 2 (lane % 4) and
+// 2 (lane % 4) + 1 (the low half first): the layout of a wgmma accumulator's
+// 8 x 8 pieces.
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // --- host: TMA descriptors ---------------------------------------------------

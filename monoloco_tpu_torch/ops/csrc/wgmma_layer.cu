@@ -56,6 +56,8 @@
 // A next step: a 2-block cluster sharing each B tile by TMA multicast would
 // halve the B reads from L2; consumer warpgroups on alternate tiles
 // (ping-pong) would overlap one tile's epilogue with the next one's products.
+// relu_chain.cu (K6's layer) measures that design on the card, with one
+// wgmma group in flight and a TMA-store epilogue: see its note and PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

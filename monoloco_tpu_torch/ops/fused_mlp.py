@@ -35,9 +35,9 @@ One more Pallas kernel lives outside the JAX package: the `kernel` of
 `tools/bench_roofline.py` `bench_chain_resident` (K6, the `pl.pallas_call`
 of `run_tile`), eight dependent bf16 layers y <- bf16(relu(y @ W_i)) with f32
 sums and no bias, a probe of the chip's ceiling. `relu_chain` runs it as
-eight launches of `csrc/wgmma_layer.cu`'s bf16 layer with its 'relu'
-epilogue and a zero bias, which is exactly the Pallas body; `relu_chain_plain`
-chains `layer_plain`.
+eight launches of `csrc/relu_chain.cu`, a layer kernel of its own (B shared
+across a 2-block cluster by TMA multicast, one wgmma group in flight, TMA
+stores not waited on); `relu_chain_plain` chains `layer_plain`.
 
 A wrapper runs the kernel's plain PyTorch version for a tensor on the CPU,
 and launches the kernel for a CUDA tensor, or raises; nothing falls back
@@ -884,32 +884,11 @@ def loco_layer(a, w, bias, epilogue, oscale=None, y=None):
     return out
 
 
-def relu_chain(x, ws):
-    """K6, the roofline probe's resident chain (`tools/bench_roofline.py`
-    `bench_chain_resident`): y <- bf16(relu(y @ W_i)) for each W_i of ws, x
-    (m, H) bf16, each W_i (H, H) bf16, f32 sums, no bias. Returns (m, H)
-    bf16. A CPU tensor runs `relu_chain_plain`; a CUDA tensor launches
-    csrc/wgmma_layer.cu's bf16 layer once per W_i with the 'relu' epilogue
-    and a zero f32 bias, bf16(relu(acc + 0)), exactly the Pallas body;
-    counted once per call in launches['relu_chain_bf16']. Scratch: two (m,
-    H) bf16 buffers, the output one of them. Requires H % 128 == 0.
-
-    Why no kernel of its own: the Pallas kernel keeps a 512-row tile's
-    activations and all eight weights (16 MB at H = 1024) in VMEM and runs
-    every layer in one grid step. A block on the H100 has 227 KB of shared
-    memory: a 128-row bf16 tile at H = 1024 is 256 KB already, and a 64-row
-    tile would re-read the whole 16 MB stack from L2 once per 64 rows (33 GB
-    at 131072 rows). So the chain crosses device memory between layers, as
-    the layered MLP kernels do: x and each layer's output once (bf16, 256 MB
-    each at 131072 x 1024), each weight byte once per 128-row tile. The work
-    is bound by its products, 2.2 TFLOP at 131072 x 1024 x 8, 2.22 ms at the
-    bf16 peak, against 0.55 GB of inputs, output and weights (0.17 ms at
-    3.35 TB/s)."""
-    if x.device.type == 'cpu':
-        return relu_chain_plain(x, ws)
-    if x.device.type != 'cuda':
-        raise ValueError(f"relu_chain: no path for a tensor on {x.device}")
-    key = 'relu_chain_bf16'
+def _run_relu_chain(key, x, ws, layer_call, count=True):
+    """Check a chain's operands on a card and run it: layer_call(lib, a, w,
+    out, stream), one layer's C call, made once per W_i into two (m, H) bf16
+    buffers in turn; counted once in launches[key] if `count` and anything
+    was launched. Returns the last output."""
     m, hidden = x.shape
     if hidden % 128 != 0:
         raise ValueError(f"relu_chain kernel requires hidden % 128 == 0, got {hidden}")
@@ -921,17 +900,62 @@ def relu_chain(x, ws):
     bufs = [torch.empty_like(x) for _ in range(min(len(ws), 2))]
     if m == 0:
         return bufs[0]
-    zero = torch.zeros(hidden, dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = _stream(x.device)
         y = x
         for i, w in enumerate(ws):
-            _raise_on(key, lib, _layer_call(lib, y, w, zero, 'relu', None, None, bufs[i % 2],
-                                            stream))
+            _raise_on(key, lib, layer_call(lib, y, w, bufs[i % 2], stream))
             y = bufs[i % 2]
-    launches[key] += 1
+    if count:
+        launches[key] += 1
     return y
+
+
+def relu_chain(x, ws):
+    """K6, the roofline probe's resident chain (`tools/bench_roofline.py`
+    `bench_chain_resident`): y <- bf16(relu(y @ W_i)) for each W_i of ws, x
+    (m, H) bf16, each W_i (H, H) bf16 (a list or a stacked (L, H, H)
+    tensor), f32 sums, no bias. Returns (m, H) bf16. A CPU tensor runs
+    `relu_chain_plain`; a CUDA tensor launches csrc/relu_chain.cu once per
+    W_i, counted once per call in launches['relu_chain_bf16']. Scratch: two
+    (m, H) bf16 buffers, the output one of them. Requires H % 128 == 0.
+
+    The kernel of its own: the Pallas kernel keeps a 512-row tile's
+    activations and all eight weights (16 MB at H = 1024) in VMEM and runs
+    every layer in one grid step. A block on the H100 has 227 KB of shared
+    memory: a 128-row bf16 tile at H = 1024 is 256 KB already. So the chain
+    crosses device memory between layers: x and each layer's output once
+    (bf16, 256 MB each at 131072 x 1024). The work is bound by its
+    products, 2.2 TFLOP at 131072 x 1024 x 8, 2.22 ms at the bf16 peak,
+    against 0.55 GB of inputs, output and weights (0.17 ms at 3.35 TB/s).
+    csrc/relu_chain.cu is a layer kernel for that bound alone: relu and a
+    bf16 pack, no bias. It keeps one wgmma group in flight, shares each B
+    tile across a 2-block cluster by TMA multicast (B read from L2 once per
+    256 rows, not 128), and stages the output through shared memory for
+    TMA stores that the next tile's products do not wait on; it sizes its
+    persistent grid of clusters itself. It runs the same wgmma shape and k
+    order as the bf16 layer of csrc/wgmma_layer.cu, which ran the chain
+    before with a zero bias, and agrees with it bit for bit."""
+    if x.device.type == 'cpu':
+        return relu_chain_plain(x, ws)
+    if x.device.type != 'cuda':
+        raise ValueError(f"relu_chain: no path for a tensor on {x.device}")
+    return _run_relu_chain('relu_chain_bf16', x, ws, lambda lib, a, w, out, stream:
+                           lib.relu_chain_layer_forward(a.data_ptr(), w.data_ptr(),
+                                                        out.data_ptr(), a.shape[0], a.shape[1],
+                                                        stream))
+
+
+def _relu_chain_wgmma_layer(x, ws):
+    """K6 as it ran before csrc/relu_chain.cu: csrc/wgmma_layer.cu's bf16
+    layer once per W_i with the 'relu' epilogue and a zero f32 bias,
+    bf16(relu(acc + 0)). A comparison path for a card (counts no launch)."""
+    zero = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    return _run_relu_chain('wgmma_layer_bf16', x, ws,
+                           lambda lib, a, w, out, stream: _layer_call(
+                               lib, a, w, zero, 'relu', None, None, out, stream),
+                           count=False)
 
 
 def loco_layer_f32(a, w, bias, epilogue, y=None):

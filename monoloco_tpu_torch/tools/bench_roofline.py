@@ -14,8 +14,8 @@ tool's `which` names so that the rows compare:
                                 here, as XLA's was the JAX tool's);
   chain_pallas_resident_tflops  the same chain through `ops.relu_chain`, the
                                 port of the Pallas kernel of that row (K6:
-                                csrc/wgmma_layer.cu's bf16 layer with its
-                                'relu' epilogue, one launch per layer);
+                                csrc/relu_chain.cu, a bf16 relu layer
+                                kernel of its own, one launch per layer);
   serve_inf_per_sec             the port bench's bf16 serving program (K^-1
                                 -> bf16 folded MLP -> decode, hidden 1024, 3
                                 stages), with its trunk-equivalent TFLOP/s

@@ -29,14 +29,15 @@ M, H, L = 256, 256, 8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _chain_inputs(scale, seed=0):
-    """x ~ N(0, 1) and L weights ~ N(0, scale^2) as float32 numpy; scale
-    'he' keeps the activations O(1) through the chain (sqrt(2 / H)), 'tool'
-    is the roofline tool's 0.01."""
+def _chain_inputs(scale, seed=0, m=M, hidden=H, layers=L):
+    """x ~ N(0, 1) and `layers` weights ~ N(0, scale^2) as float32 numpy;
+    scale 'he' keeps the activations O(1) through the chain (sqrt(2 /
+    hidden)), 'tool' is the roofline tool's 0.01."""
     rng = np.random.default_rng(seed)
-    std = np.sqrt(2.0 / H) if scale == 'he' else 0.01
-    x = rng.normal(size=(M, H)).astype(np.float32)
-    return x, [(rng.normal(size=(H, H)) * std).astype(np.float32) for _ in range(L)]
+    std = np.sqrt(2.0 / hidden) if scale == 'he' else 0.01
+    x = rng.normal(size=(m, hidden)).astype(np.float32)
+    return x, [(rng.normal(size=(hidden, hidden)) * std).astype(np.float32)
+               for _ in range(layers)]
 
 
 def _pallas_body(x, ws):
@@ -64,6 +65,22 @@ def test_relu_chain_plain_matches_the_pallas_body(scale):
     x, ws = _chain_inputs(scale)
     ours = relu_chain_plain(_bf16(x), [_bf16(w) for w in ws])
     assert ours.dtype == torch.bfloat16 and ours.shape == (M, H)
+    ref = _pallas_body(x, ws)
+    assert np.abs(ref).max() > 0
+    _assert_bf16_rule(ours.float().numpy(), ref)
+
+
+@pytest.mark.parametrize('layers', [1, 8])
+@pytest.mark.parametrize('hidden', [128, 256, 384])
+@pytest.mark.parametrize('m', [1, 127, 129, 257])
+def test_relu_chain_plain_matches_the_pallas_body_at_the_kernels_edges(m, hidden, layers):
+    """The shapes the card holds csrc/relu_chain.cu at for its edges: one
+    row, a row block short of or just past 128 rows (a cluster's second
+    block without rows at m = 1 and 257), 256-column tiles at H = 256 and
+    128-column tiles at H = 128 and 384."""
+    x, ws = _chain_inputs('he', seed=m + hidden + layers, m=m, hidden=hidden, layers=layers)
+    ours = relu_chain_plain(_bf16(x), [_bf16(w) for w in ws])
+    assert ours.dtype == torch.bfloat16 and ours.shape == (m, hidden)
     ref = _pallas_body(x, ws)
     assert np.abs(ref).max() > 0
     _assert_bf16_rule(ours.float().numpy(), ref)
