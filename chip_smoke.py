@@ -119,6 +119,27 @@ to the CPU):
     checkpoint (hidden 128, trained on easy-mode seed 11) over an easy-mode
     root of seed 12, 3769 val scenes: int8 and bf16 ALE (all) within 2% of
     float32's, each ALP gate within 1 point, every chunk through its kernel.
+ 21. Prep through the entry point: `run prep` on a hard-mode synthetic KITTI
+    tree (1000 train + 300 val scenes, seed 21, images written, so image
+    sizes come from the PNG headers), mono and stereo; the wall, rows per
+    phase and file sizes printed, every row's inputs its keypoints through
+    K^-1.
+ 22. Training on the card at MonoLoco++'s full width (hidden 1024, 3
+    stages, bs 512, dropout 0.2). First the card against the CPU from the
+    same weights, on the same rows with the keep-masks the card drew: 10
+    steps each free-running (the deviation printed: Adam turns last-bit
+    differences of near-zero gradients into lr-sized moves, so the two
+    trajectories part), then 10 steps with each CPU step taken from the
+    card's state before it (weights, BN statistics, Adam moments and
+    count), losses and gradient norms (before clipping) within 1e-4
+    relative. Then `run train` for 30 epochs at float32, tensorfloat32 and
+    bf16, and MonStereo (68 -> 10) for 5 at float32: steps/s, samples/s, an
+    epoch's wall, the device's busy share of one epoch (torch.profiler);
+    the val d loss must fall from epoch 0 to the best epoch, and no serving
+    kernel launches.
+ 23. The float32 checkpoint of phase 22 through `eval --generate` and
+    EvalKitti on the tree's 300 val scenes: ALE/ALP printed, not bounded,
+    as the entry point scores and with every detection kept.
 The launch counts of the report are those of the main-path runs (phases 4,
 8, 9, 11, 12, 13, 16, 17, 18 and 20, each with every count set to 0 just
 before it; phase 20's from its legs' own processes); a count is one
@@ -205,6 +226,12 @@ GEN_PRECISIONS = ('float32', 'int8', 'bf16')
 AB_SEED = 12               # phase 20's dataset; the checkpoint was trained on seed 11
 AB_ALE_PCT = 2.0           # phase 20: int8 and bf16 ALE (all) within 2% of float32's,
 AB_ALP_POINTS = 1.0        # and each ALP gate within 1 point
+PREP_TRAIN, PREP_VAL, PREP_SEED = 1000, 300, 21    # phase 21's synthetic tree, hard mode
+TRAIN_BS, TRAIN_DROPOUT = 512, 0.2                  # phase 22: MonoLoco++'s training defaults
+PARITY_STEPS = 10
+TRAIN_PARITY_TOL = 1e-4    # card vs CPU, loss and gradient norm a step, relative
+TRAIN_PRECISIONS = ('float32', 'tensorfloat32', 'bf16')
+TRAIN_EPOCHS, STEREO_TRAIN_EPOCHS = 30, 5
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -1807,6 +1834,249 @@ def phase_int8_ab(tmp):
             'fused_mlp_bf16': legs['bf16']['launches'].get('fused_mlp_bf16', 0)}
 
 
+def phase_prep(tmp):
+    """`run prep` on a hard-mode synthetic KITTI tree with images, mono and
+    stereo; returns (the tree's root, {mode: the joints file})."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.geometry.host import np_preprocess_monoloco
+    from monoloco_tpu_torch.tools import make_synthetic_kitti
+    print(f"== phase 21: prep through the entry point, {PREP_TRAIN} train + {PREP_VAL} val "
+          f"scenes (hard mode, images written)", flush=True)
+    root = os.path.join(tmp, 'kitti_prep')
+    t0 = time.perf_counter()
+    make_synthetic_kitti.make_dataset(root, n_train=PREP_TRAIN, n_val=PREP_VAL, seed=PREP_SEED,
+                                      hard=True, images=True)
+    print(f"dataset: seed {PREP_SEED}, written in {time.perf_counter() - t0:.2f} s", flush=True)
+    joints = {}
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        for mode in ('mono', 'stereo'):
+            t0 = time.perf_counter()
+            prep = run.main(['prep', '--dir_ann', 'annotations', '--mode', mode])
+            wall = time.perf_counter() - t0
+            jo = prep.dic_jo
+            rows = {ph: len(jo[ph]['X']) for ph in ('train', 'val')}
+            print(json.dumps({'phase': 21, 'mode': mode, 'wall_s': wall, 'rows': rows,
+                              'joints_bytes': os.path.getsize(prep.path_joints),
+                              'names_bytes': os.path.getsize(prep.path_names)}), flush=True)
+            check(rows['train'] > 1000 and rows['val'] > 100, f"prep {mode}: rows {rows}")
+            # Each row's inputs are its keypoints through K^-1 (the left half
+            # for stereo), and its labels a person in front of the camera.
+            width = 34 if mode == 'mono' else 68
+            for ph in ('train', 'val'):
+                x = np.asarray(jo[ph]['X'], np.float32)
+                y = np.asarray(jo[ph]['Y'], np.float32)
+                kps = np.asarray(jo[ph]['kps'], np.float32)[:, 0, :, :17]
+                ref = np.concatenate([np_preprocess_monoloco(k, kk)
+                                      for k, kk in zip(kps, jo[ph]['K'])])
+                check(x.shape[1] == width and np.array_equal(x[:, :34], ref),
+                      f"prep {mode} {ph}: inputs are not the keypoints through K^-1")
+                check(bool((y[:, 2] > 0).all() and (y[:, 3] >= y[:, 2] - 1e-4).all()),
+                      f"prep {mode} {ph}: labels with z <= 0 or d < z")
+            joints[mode] = os.path.abspath(prep.path_joints)
+    finally:
+        os.chdir(old)
+    return root, joints
+
+
+def _train_args(joints, mode='mono', extra=()):
+    return ['train', '--joints', joints, '--mode', mode, '--bs', str(TRAIN_BS), '--dropout',
+            str(TRAIN_DROPOUT), '--hidden_size', str(HIDDEN), '--n_stage', str(STAGES), *extra]
+
+
+def _copy_training_state(dst, src):
+    """Put `src`'s weights, BN statistics, Adam moments and step count into
+    the trainer `dst` (on its own device)."""
+    with torch.no_grad():
+        for a, b in zip(dst._model_leaves, src._model_leaves):
+            a.copy_(b)
+    dst.bn_state = _to_device(src.bn_state, dst.device)
+    for a, b in zip(dst.optimizer.param_groups[0]['params'],
+                    src.optimizer.param_groups[0]['params']):
+        dst.optimizer.state[a] = {k: v.detach().to(dst.device if k != 'step' else v.device)
+                                  .clone() for k, v in src.optimizer.state[b].items()}
+    dst.n_steps = src.n_steps
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.detach().to(device).clone()
+
+
+def phase_train_parity(joints):
+    """The training step on the card against the CPU: from the same weights,
+    on the same rows with the keep-masks the card drew, PARITY_STEPS steps
+    each. First free-running (each device from its own previous step; the
+    deviation is printed), then each CPU step from the card's state before
+    it, where the losses and gradient norms must agree within
+    TRAIN_PARITY_TOL relative. Returns the worst relative deviation of the
+    checked steps."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.models import n_dropout_sites, train_keep_masks
+    from monoloco_tpu_torch.train import Trainer
+    print(f"== phase 22: training, card vs CPU: {PARITY_STEPS} steps at hidden {HIDDEN}, "
+          f"{STAGES} stages, bs {TRAIN_BS}, dropout {TRAIN_DROPOUT}, float32", flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    args = run.cli(_train_args(joints, extra=('--no_save',)))
+    card = Trainer(args)
+    cpu = Trainer(args, device='cpu')
+    cpu.set_weights(card.params, card.bn_state)
+    check(card.device.type == 'cuda' and card.n_train >= PARITY_STEPS * TRAIN_BS // 2,
+          f"training parity: device {card.device}, {card.n_train} rows")
+    order = torch.cat([card._permutation(0), card._permutation(1)])
+    worst = {}
+    for synced in (False, True):
+        for s in range(PARITY_STEPS):
+            idx = order[s * TRAIN_BS:(s + 1) * TRAIN_BS]
+            masks = train_keep_masks(TRAIN_BS, HIDDEN, n_dropout_sites(STAGES), TRAIN_DROPOUT,
+                                     card.gen, card.device)
+            if synced:
+                _copy_training_state(cpu, card)
+            loss_c, gn_c, _ = card.step(card.x_tr[idx], card.y_tr[idx], masks=masks)
+            idx_h = idx.cpu()
+            t0 = time.perf_counter()
+            loss_h, gn_h, _ = cpu.step(cpu.x_tr[idx_h], cpu.y_tr[idx_h],
+                                       masks=[m.cpu() for m in masks])
+            cpu_s = time.perf_counter() - t0
+            rel_l = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+            rel_g = abs(float(gn_c) - float(gn_h)) / float(gn_h)
+            kind = 'from the card state' if synced else 'free-running'
+            worst[kind] = max(worst.get(kind, 0.0), rel_l, rel_g)
+            print(f"  {kind} step {card.n_steps - 1}: loss card {float(loss_c):.6f} cpu "
+                  f"{float(loss_h):.6f} (rel {rel_l:.2e}), grad norm card {float(gn_c):.6f} "
+                  f"cpu {float(gn_h):.6f} (rel {rel_g:.2e}); cpu step {cpu_s:.2f} s", flush=True)
+            if synced:
+                check(rel_l <= TRAIN_PARITY_TOL and rel_g <= TRAIN_PARITY_TOL,
+                      f"training step {s}: the card's loss or gradient norm is off the CPU's")
+    print(json.dumps({'phase': 22, 'check': 'card vs cpu', 'steps': PARITY_STEPS,
+                      'max_rel': worst, 'tol': TRAIN_PARITY_TOL}), flush=True)
+    return worst['from the card state']
+
+
+def _busy_share_of_an_epoch(joints, mode):
+    """The device's busy share of one epoch (the second of a fresh trainer,
+    at the environment's precision): (CUDA kernel time, the epoch's wall,
+    the CUDA kernels launched, the kernel time of cuBLAS's products (names
+    with 'gemm' or 'nvjet'), the five kernels of most time as [name, ms,
+    launches])."""
+    from torch.profiler import ProfilerActivity, profile
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.train import Trainer
+    trainer = Trainer(run.cli(_train_args(joints, mode, ('--no_save',))))
+    trainer.run_epoch(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_epoch(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    gemm = sum(e.time_range.elapsed_us() for e in kernels
+               if 'gemm' in e.name.lower() or 'nvjet' in e.name.lower()) / 1e6
+    by_name = {}
+    for e in kernels:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return busy, wall, len(kernels), gemm, [[k[:80], us / 1e3, n] for k, (us, n) in top]
+
+
+def _timed_train(tmp, joints, mode, precision, epochs):
+    """`run train` at `precision` for `epochs`, launch counts zeroed before;
+    prints and returns its record, with the checkpoint's path."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.ops import launches
+    os.environ['MONOLOCO_TPU_PRECISION'] = precision
+    out = os.path.join(tmp, f'{mode}_{precision}.pkl')
+    _zero_launches()
+    t0 = time.perf_counter()
+    trainer = run.main(_train_args(joints, mode, ('--epochs', str(epochs), '--out', out)))
+    wall = time.perf_counter() - t0
+    ran = {k: n for k, n in launches.items() if n}
+    check(not ran, f"training launched serving kernels: {ran}")
+    check(trainer.device.type == 'cuda' and os.path.exists(out),
+          f"train {mode} {precision}: device {trainer.device}, checkpoint {out}")
+    steps = -(-trainer.n_train // TRAIN_BS)
+    epoch_s = statistics.median(trainer.epoch_walls[1:])
+    val_d = trainer.epoch_losses['val']['d']
+    busy, busy_wall, n_kernels, gemm, top = _busy_share_of_an_epoch(joints, mode)
+    rec = {'phase': 22, 'mode': mode, 'precision': precision, 'hidden': HIDDEN,
+           'stages': STAGES, 'bs': TRAIN_BS, 'rows': trainer.n_train, 'epochs': epochs,
+           'steps_per_epoch': steps, 'epoch_wall_s': epoch_s,
+           'first_epoch_wall_s': trainer.epoch_walls[0],
+           'steps_per_s': steps / epoch_s, 'samples_per_s': trainer.n_train / epoch_s,
+           'run_wall_s': wall, 'val_d_first': val_d[0], 'val_d_best': min(val_d),
+           'best_epoch': trainer.best_epoch, 'device_busy_s': busy,
+           'profiled_epoch_wall_s': busy_wall, 'device_busy_share': busy / busy_wall,
+           'cuda_kernels_per_step': n_kernels / steps, 'gemm_device_s': gemm,
+           'top_kernels': top}
+    print(json.dumps(rec), flush=True)
+    check(all(np.isfinite(v) for v in val_d), f"train {mode} {precision}: val d not finite")
+    check(trainer.best_epoch > 0 and val_d[trainer.best_epoch] < val_d[0],
+          f"train {mode} {precision}: the val d loss did not fall ({val_d})")
+    return rec, out
+
+
+def phase_train(tmp, joints):
+    """The card-vs-CPU step check, then timed `run train` at full width per
+    precision (mono), and MonStereo at float32; returns the float32 mono
+    checkpoint."""
+    phase_train_parity(joints['mono'])
+    print(f"== phase 22: run train on the card, MonoLoco++ 34 -> 9, hidden {HIDDEN}, "
+          f"{STAGES} stages, bs {TRAIN_BS}, dropout {TRAIN_DROPOUT}, {TRAIN_EPOCHS} epochs a "
+          f"precision; MonStereo 68 -> 10 at float32, {STEREO_TRAIN_EPOCHS} epochs", flush=True)
+    ckpt = {}
+    for precision in TRAIN_PRECISIONS:
+        _, ckpt[precision] = _timed_train(tmp, joints['mono'], 'mono', precision, TRAIN_EPOCHS)
+    _timed_train(tmp, joints['stereo'], 'stereo', 'float32', STEREO_TRAIN_EPOCHS)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    return ckpt['float32']
+
+
+def phase_trained_eval(root, model):
+    """`eval --generate` + EvalKitti with the card-trained checkpoint on the
+    prep tree's val scenes, at float32."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.eval import EvalKitti
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.tools.eval_parity import extract_metrics
+    print(f"== phase 23: the card-trained checkpoint through eval --generate + EvalKitti, "
+          f"{PREP_VAL} val scenes", flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        argv = ['eval', '--generate', '--dir_ann', 'annotations', '--model', model]
+        gen, ev = run.main(argv)
+        wall = time.perf_counter() - t0
+        n_images = len(os.listdir(os.path.join('data', 'kitti', gen.net)))
+        # The same txt tree scored with every detection kept (the confidence
+        # floor off, as tools.eval_parity scores): a briefly trained net's
+        # spread can put its confidences under EvalKitti's 0.2.
+        ev_all = EvalKitti(run.cli(argv))
+        ev_all.dic_thresh_conf[gen.net] = -100
+        ev_all.run()
+    finally:
+        os.chdir(old)
+    metrics = extract_metrics(ev, gen.net)
+    metrics_all = extract_metrics(ev_all, gen.net)
+    print(json.dumps({'phase': 23, 'model': os.path.basename(model), 'images': n_images,
+                      'wall_s': wall, 'dispatches': gen.model.n_dispatches,
+                      'device': str(gen.model.device), **metrics,
+                      'every_detection': metrics_all}), flush=True)
+    # A val scene whose pifpaf file holds no detection gets no txt file.
+    check(0.95 * PREP_VAL <= n_images <= PREP_VAL and gen.model.device.type == 'cuda',
+          f"trained eval: {n_images} txt files on {gen.model.device}")
+    check(not any(launches.values()), "float32 generation launched a kernel")
+    check(metrics_all['matched'] > 0 and np.isfinite(metrics_all['ale']['all']),
+          f"trained eval: {metrics_all}")
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
 
@@ -1909,6 +2179,11 @@ def main():
     for counts in (gen_counts, phase_int8_ab(main_dir.name)):
         for key, n in counts.items():
             main_launches[key] = main_launches.get(key, 0) + n
+    # Prep, training and the trained checkpoint's ALE/ALP (phases 21-23).
+    t0 = time.perf_counter()
+    prep_root, joints = phase_prep(main_dir.name)
+    phase_trained_eval(prep_root, phase_train(main_dir.name, joints))
+    print(f"phases 21-23: {time.perf_counter() - t0:.1f} s", flush=True)
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']

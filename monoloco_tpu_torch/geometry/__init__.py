@@ -20,6 +20,7 @@ from .host import (
     np_xyz_from_distance,
     correct_angle,
     to_spherical,
+    project_3d,
 )
 from .stereo import (
     BF,

@@ -4,8 +4,9 @@
 
 Post-processing works on a handful of detections per image, so it stays in
 numpy on the host; `geometry/camera.py` holds the torch twins that run on the
-device inside the forward. `correct_angle` and `to_spherical` are the scalar
-helpers of `monoloco_tpu/geometry/camera.py` that ground-truth parsing calls
+device inside the forward. `correct_angle`, `to_spherical`, `to_cartesian`
+(its list variant) and `project_3d` are the scalar helpers of
+`monoloco_tpu/geometry/camera.py` that ground-truth parsing and prep call
 on Python floats.
 """
 
@@ -104,3 +105,29 @@ def to_spherical(xyz):
     theta = math.atan2(z, x)
     psi = math.acos(y / r)
     return [r, theta, psi]
+
+
+def to_cartesian(rtp):
+    """Spherical [r, theta, psi] -> cartesian [x, y, z], on Python floats:
+    the list variant of `monoloco_tpu/geometry/camera.py`'s `to_cartesian`
+    (the port's batched torch variant, `geometry.camera.to_cartesian`,
+    takes network outputs laid out [theta, psi, r] and a `mode`)."""
+    r, t, p = float(rtp[0]), float(rtp[1]), float(rtp[2])
+    return [r * math.sin(p) * math.cos(t), r * math.cos(p), r * math.sin(p) * math.sin(t)]
+
+
+def project_3d(box_obj, kk):
+    """Project a 3D box (a nuScenes Box: `center`, `wlh`) into an image-plane
+    2D box [x1, y1, x2, y2] through its two central corners at the centre's
+    depth."""
+    xc, yc, zc = box_obj.center
+    ww, _, hh = box_obj.wlh
+    corners = np.array([[xc - ww / 2, yc - hh / 2, zc],
+                        [xc + ww / 2, yc + hh / 2, zc]])
+    kk = np.asarray(kk, dtype=np.float64)
+    box_2d = []
+    for xyz in corners:
+        uvw = kk @ xyz
+        box_2d.append(float(uvw[0] / uvw[2]))
+        box_2d.append(float(uvw[1] / uvw[2]))
+    return box_2d

@@ -1,6 +1,8 @@
 from .loco import (
     init_loco_params,
     loco_forward,
+    loco_forward_train,
+    train_keep_masks,
     fold_eval_params,
     folded_forward,
     folded_forward_mc,

@@ -76,9 +76,10 @@ def params_from_numpy(params, bn_state, device='cpu'):
     return _to_torch(params, device), _to_torch(bn_state, device)
 
 
-def save_checkpoint(path, params, bn_state, meta=None):
+def save_checkpoint(path, params, bn_state, meta=None, extra=None):
     """Save (params, bn_state, meta) as the native pickle (numpy leaves, so
-    the JAX package loads it too). Orbax directories are not written here."""
+    the JAX package loads it too); `extra` adds keys beside them (the
+    trainer's 'log_sigmas'). Orbax directories are not written here."""
     if str(path).endswith('.orbax'):
         raise NotImplementedError(
             "orbax checkpoints are not ported (ROADMAP Queue 1, training)")
@@ -87,6 +88,7 @@ def save_checkpoint(path, params, bn_state, meta=None):
         'params': _to_numpy(params),
         'bn_state': _to_numpy(bn_state),
         'meta': meta or {},
+        **(extra or {}),
     }
     with open(path, 'wb') as f:
         pickle.dump(blob, f)

@@ -1,10 +1,18 @@
-"""The Loco (MonoLoco++) residual MLP in torch: init, eval forward, BN fold.
+"""The Loco (MonoLoco++) residual MLP in torch: init, the eval and training
+forwards, BN fold.
 
 Counterpart of `monoloco_tpu/models/loco.py`. Parameters are nested dicts of
 tensors with the JAX package's keys and its (in, out) weight layout, so
 `x @ W` and the tests compare like with like; the residual stages are stacked
-along a leading axis (S, ...). This slice serves and does not train, so only
-the eval forward (BN in eval mode, no dropout) is here.
+along a leading axis (S, ...). The trees map one to one onto the JAX
+package's `params` and `bn_state` (`checkpoint.params_from_numpy` one way,
+the numpy export of `save_checkpoint` the other).
+
+`loco_forward_train` is the training forward: BatchNorm from the batch's
+statistics (optionally over the rows a mask keeps) with torch's running-stat
+update (eps 1e-5, momentum 0.1, unbiased running variance), and dropout
+after each ReLU, `where(keep, h / (1 - p), 0)`, as the JAX package's
+`loco_forward(train=True)`.
 
 `fold_eval_params` folds eval-mode BN into the preceding linear; the folded
 forward is the chain the dyn8 kernel (ops/fused_mlp.py) computes:
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def _init_linear(rng, fan_in, fan_out):
@@ -103,6 +112,102 @@ def loco_forward(params, bn_state, x):
                                      _dense(params['w3'], y2)))
     fin = _dense(params['w_fin'], y3)
     return torch.cat([fin, aux], dim=1)
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _dense_train(p, x):
+    """x @ W + b for training. Under autocast (bf16) the product runs in bf16
+    and its output comes back as f32, so BN, the residual and the loss stay
+    f32."""
+    y = torch.addmm(p['b'], x, p['w'])
+    return y if y.dtype == torch.float32 else y.float()
+
+
+def _batch_norm_train(p, state, x, row_mask):
+    """Training-mode BatchNorm1d. `state` ({'mean', 'var'}, a fresh copy)
+    takes the running-stat update in place. Without `row_mask` this is
+    `F.batch_norm`; with it, the statistics cover the rows the (m,) 0/1 mask
+    keeps: the biased variance normalizes, the unbiased one (n - 1, at least
+    1) enters the running variance. A batch of one row takes the masked
+    path, as `F.batch_norm` refuses it and the JAX package computes it."""
+    if row_mask is None and x.shape[0] > 1:
+        return nn.functional.batch_norm(x, state['mean'], state['var'], p['scale'], p['bias'],
+                                        training=True, momentum=BN_MOMENTUM, eps=BN_EPS)
+    if row_mask is None:
+        row_mask = torch.ones(x.shape[0], device=x.device)
+    w = row_mask[:, None]
+    n = row_mask.sum()
+    mean = (x * w).sum(dim=0) / n
+    var = (((x - mean) ** 2) * w).sum(dim=0) / n
+    y = (x - mean) * torch.rsqrt(var + BN_EPS)
+    with torch.no_grad():
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+        state['mean'].mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        state['var'].mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+    return y * p['scale'] + p['bias']
+
+
+def train_keep_masks(rows, hidden, n_sites, p_dropout, generator, device):
+    """One training step's keep-masks: `n_sites` bool (rows, hidden) tensors,
+    True with probability 1 - p_dropout, drawn from `generator` (on
+    `device`) site by site in `n_dropout_sites` order."""
+    return [torch.rand((rows, hidden), generator=generator, device=device) < 1.0 - p_dropout
+            for _ in range(n_sites)]
+
+
+def loco_forward_train(params, bn_state, x, p_dropout=0.2, masks=None, row_mask=None,
+                       generator=None):
+    """The training forward of the Loco model. Returns (outputs (m, out)
+    ordered [fin..., aux], new_bn_state).
+
+    Dropout after each ReLU, with p_dropout > 0 only: `masks` are the keep
+    masks in `n_dropout_sites` order (each broadcastable to (m, hidden));
+    without them they are drawn from `generator` (`train_keep_masks`).
+    `row_mask` (m,) of 0/1 keeps padded rows out of the BN statistics. The
+    running stats of `bn_state` are not touched: the update lands in a copy.
+    """
+    new_state = _tree_clone(bn_state)
+    hidden = params['w1']['w'].shape[1]
+    n_stage = params['stages']['w1']['w'].shape[0]
+    if p_dropout > 0 and masks is None:
+        masks = train_keep_masks(x.shape[0], hidden, n_dropout_sites(n_stage), p_dropout,
+                                 generator, x.device)
+    sites = iter(masks if p_dropout > 0 else ())
+
+    def relu_drop(h):
+        h = torch.relu(h)
+        if p_dropout > 0:
+            h = torch.where(next(sites), h / (1.0 - p_dropout), 0.0)
+        return h
+
+    def unbind(tree):
+        return ({k: unbind(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.unbind(0))
+
+    def at(tree, i):
+        return {k: at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    y = relu_drop(_batch_norm_train(params['bn1'], new_state['bn1'],
+                                    _dense_train(params['w1'], x), row_mask))
+    stages = unbind(params['stages'])
+    for i in range(n_stage):
+        sp, ss = at(stages, i), at(new_state['stages'], i)
+        h = relu_drop(_batch_norm_train(sp['bn1'], ss['bn1'], _dense_train(sp['w1'], y),
+                                        row_mask))
+        h = relu_drop(_batch_norm_train(sp['bn2'], ss['bn2'], _dense_train(sp['w2'], h),
+                                        row_mask))
+        y = y + h
+    y2 = _dense_train(params['w2'], y)
+    aux = _dense_train(params['w_aux'], y2)
+    y3 = relu_drop(_batch_norm_train(params['bn3'], new_state['bn3'],
+                                     _dense_train(params['w3'], y2), row_mask))
+    fin = _dense_train(params['w_fin'], y3)
+    return torch.cat([fin, aux], dim=1), new_state
 
 
 def _fold(linear, bn, bn_state):

@@ -12,6 +12,8 @@ from .decode import (
     laplace_uniforms,
     extract_outputs,
     extract_outputs_mono,
+    extract_labels,
+    extract_labels_aux,
     cluster_outputs,
     filter_outputs,
 )

@@ -3,7 +3,8 @@
 Counterpart of `monoloco_tpu/network/decode.py`. Channel layout of the raw
 MonoLoco++/MonStereo outputs (m, 9|10): 0 theta, 1 psi, 2 d mean,
 3 log-spread, 4-6 h/w/l, 7-8 sin/cos of the allocentric yaw, 9 stereo-aux
-logit.
+logit. Label layout (m, 10|11), which training slices per task: 0 theta,
+1 psi, 2 z, 3 d, 4-6 h/w/l, 7-8 sin/cos, 9 yaw, 10 stereo-match flag.
 """
 
 import torch
@@ -13,6 +14,10 @@ from ..geometry import to_cartesian, back_correct_angles
 _TASK_SLICES = {
     'x': (0, 1), 'y': (1, 2), 'd': (2, 4), 'h': (4, 5), 'w': (5, 6),
     'l': (6, 7), 'ori': (7, 9), 'aux': (9, 10),
+}
+_LABEL_SLICES = {
+    'x': (0, 1), 'y': (1, 2), 'z': (2, 3), 'd': (3, 4), 'h': (4, 5),
+    'w': (5, 6), 'l': (6, 7), 'ori': (7, 9), 'aux': (10, 11),
 }
 
 
@@ -45,11 +50,15 @@ def laplace_sampling(outputs, n_samples, seed=1, u=None):
             - bi[..., None, :] * torch.sign(u) * torch.log1p(-2.0 * torch.abs(u)))
 
 
-def extract_outputs(outputs):
-    """Decode raw outputs into xyzd, d, bi, yaw (alpha, ry), h/w/l, ori and,
-    for 10-channel outputs, the sigmoid of aux. z is clamped at 0 where
-    d^2 < x^2 + y^2, as in the JAX package."""
+def extract_outputs(outputs, tasks=()):
+    """With `tasks` (a tuple), the ordered list of each task's raw channel
+    slice (training). Without, decode raw outputs into xyzd, d, bi, yaw
+    (alpha, ry), h/w/l, ori and, for 10-channel outputs, the sigmoid of aux;
+    z is clamped at 0 where d^2 < x^2 + y^2, as in the JAX package."""
     outputs = outputs.float()
+    if len(tasks) >= 1:
+        assert isinstance(tasks, tuple), "tasks need to be a tuple"
+        return [outputs[:, slice(*_TASK_SLICES[t])] for t in tasks]
     dic_out = {k: outputs[:, slice(*s)] for k, s in _TASK_SLICES.items()
                if k != 'aux' or outputs.shape[1] == 10}
     bi = unnormalize_bi(dic_out['d'])
@@ -85,6 +94,26 @@ def extract_outputs_mono(outputs):
     yaw_pred = torch.atan2(raw['ori'][:, 0:1], raw['ori'][:, 1:2])
     yaw_orig = back_correct_angles(yaw_pred, xyzd[:, 0:3])
     return {**raw, 'xyzd': xyzd, 'd': dd, 'bi': bi, 'yaw': (yaw_pred, yaw_orig)}
+
+
+def extract_labels(labels, tasks=None):
+    """Slice label channels per task: a dict, or with `tasks` (a tuple) the
+    ordered list."""
+    dic = {k: labels[:, slice(*s)] for k, s in _LABEL_SLICES.items()
+           if s[1] <= labels.shape[1]}
+    if tasks is not None:
+        assert isinstance(tasks, tuple), "tasks need to be a tuple"
+        return [dic[t] for t in tasks]
+    return dic
+
+
+def extract_labels_aux(labels, tasks=None):
+    """The aux-only label view: column 0 is the flag."""
+    dic = {'aux': labels[:, 0:1]}
+    if tasks is not None:
+        assert isinstance(tasks, tuple), "tasks need to be a tuple"
+        return [dic[t] for t in tasks]
+    return dic
 
 
 def cluster_outputs(outputs, clusters):

@@ -1,8 +1,8 @@
-"""CLI entry point: python -m monoloco_tpu_torch.run predict|eval ...
+"""CLI entry point: python -m monoloco_tpu_torch.run predict|prep|train|eval ...
 
-The predict and eval flags of `monoloco_tpu.run`, so that a JAX predict or
-KITTI eval command line runs on the port unchanged, plus `--disable-cuda`
-(without it predict and `eval --generate` need a CUDA card).
+The flags of `monoloco_tpu.run`, so that a JAX command line runs on the
+port unchanged, plus `--disable-cuda` (without it predict, train and `eval
+--generate` need a CUDA card).
 
 predict: the pifpaf passthroughs (`--checkpoint`, `--long-edge`,
 `--white-overlay`, `--font-size`, `--monocolor-connections`,
@@ -16,13 +16,25 @@ eval, from the root of a KITTI layout (`data/kitti/gt`, `data/kitti/calib`,
 (`--mode stereo`: `data/kitti/monstereo/`) with GenerateKitti, then
 `--dataset kitti` (the default) scores every method folder present with
 EvalKitti, prints the summary table and writes `data/logs/eval-<stamp>.json`.
-Scoring alone is host code and needs no card. Not ported yet, and refused
-with a message naming the ROADMAP Queue 1 item: `--activity`, `--geometric`,
-`--variance`, `--baselines`, `--save`/`--show` (item 7), `--dataset
-nuscenes` (the Trainer's evaluate, item 6) and `--dp_devices` > 1 (item 9).
+Scoring alone is host code and needs no card. `--dataset nuscenes` runs the
+Trainer's `evaluate` on `--joints` with the checkpoint `--model` (on the
+card unless `--disable-cuda`). Not ported yet, and refused with a message
+naming the ROADMAP Queue 1 item: `--activity`, `--geometric`, `--variance`,
+`--baselines`, `--save`/`--show` (item 7) and `--dp_devices` > 1 (item 9).
 
-`prep` and `train` are not ported yet (use `python -m monoloco_tpu.run` for
-them).
+prep (host code, no device): from the root of a KITTI layout,
+`prep --dir_ann annotations [--mode stereo]` writes
+`data/arrays/joints-kitti-<mode>-<stamp>.json` and `names-...json` with
+PreprocessKitti; `--activity` writes the val split's gt files with a
+social-distance flag into `data/kitti/gt_activity` instead;
+`--dataset nuscenes|nuscenes_mini|nuscenes_teaser` runs PreprocessNuscenes
+(it needs the nuScenes devkit). `--variance` is accepted and inert, as in
+the JAX CLI.
+
+train: the JAX flags plus `--disable-cuda`; it trains on the card unless
+`--disable-cuda` is given, and never falls back to the CPU. Refused, naming
+their ROADMAP Queue 1 item: `--hyp`, `--resume` and an `--out` ending in
+`.orbax` (item 6), `--dp_devices`/`--tp_devices` > 1 (item 9).
 """
 
 import argparse
@@ -39,10 +51,9 @@ def cli(argv=None):
     subparsers = parser.add_subparsers(help='Different parsers for main actions',
                                        dest='command')
     predict_parser = subparsers.add_parser("predict")
+    prep_parser = subparsers.add_parser("prep")
+    training_parser = subparsers.add_parser("train")
     eval_parser = subparsers.add_parser("eval")
-    for name in ('prep', 'train'):
-        sub = subparsers.add_parser(name, help='not ported yet')
-        sub.add_argument('rest', nargs=argparse.REMAINDER)
 
     add = predict_parser.add_argument
     add('images', nargs='*', help='input images')
@@ -97,6 +108,44 @@ def cli(argv=None):
     add('--threshold_dist', type=float, default=2.5, help='min distance of people')
     add('--radii', nargs='+', type=float, default=(0.3, 0.5, 1), help='o-space radii')
 
+    add = prep_parser.add_argument
+    add('--dir_ann', required=True, help='directory of annotations of 2d joints')
+    add('--mode', help='mono, stereo', default='mono')
+    add('--dataset', default='kitti',
+        help='datasets to preprocess: nuscenes, nuscenes_teaser, nuscenes_mini, kitti')
+    add('--dir_nuscenes', default='data/nuscenes/', help='directory of nuscenes devkit')
+    add('--iou_min', type=float, default=0.3, help='minimum iou to match ground truth')
+    add('--variance', help='new (inert)', action='store_true')
+    add('--activity', help='write the val gt files with a social-distance flag',
+        action='store_true')
+
+    add = training_parser.add_argument
+    add('--joints', required=True, help='Json file with input joints')
+    add('--mode', help='mono, stereo', default='mono')
+    add('--out', help='output_path, e.g., data/outputs/test.pkl')
+    add('-e', '--epochs', type=int, default=500, help='number of epochs to train for')
+    add('--bs', type=int, default=512, help='input batch size')
+    add('--monocular', help='whether to train monoloco (with --hyp)', action='store_true')
+    add('--dropout', type=float, default=0.2, help='dropout')
+    add('--lr', type=float, default=0.002, help='learning rate')
+    add('--sched_step', type=float, default=30, help='scheduler step time (batches)')
+    add('--sched_gamma', type=float, default=0.98, help='Scheduler multiplication every step')
+    add('--hidden_size', type=int, default=1024, help='Number of hidden units in the model')
+    add('--n_stage', type=int, default=3, help='Number of stages in the model')
+    add('--hyp', help='run hyperparameters tuning (not ported)', action='store_true')
+    add('--multiplier', type=int, default=1, help='Size of the grid of hyp search')
+    add('--r_seed', type=int, default=1, help='specify the seed for training')
+    add('--print_loss', help='print training and validation losses', action='store_true')
+    add('--auto_tune_mtl', action='store_true',
+        help='whether to use uncertainty to autotune losses')
+    add('--no_save', help='to not save model and log file', action='store_true')
+    add('--dp_devices', type=int, default=1, help='data parallelism (not ported: 1 only)')
+    add('--tp_devices', type=int, default=1, help='tensor parallelism (not ported: 1 only)')
+    add('--resume', help='checkpoint to resume training from (not ported)')
+    add('--profile', help='directory for a torch.profiler trace of the training')
+    add('--disable-cuda', dest='disable_cuda', action='store_true',
+        help='train on the CPU; without it train needs a CUDA card')
+
     add = eval_parser.add_argument
     add('--mode', help='mono, stereo', default='mono')
     add('--dataset', default='kitti', help='datasets to evaluate, kitti or nuscenes')
@@ -142,8 +191,6 @@ def _eval_refusal(args):
                 "baselines: ROADMAP Queue 1 items 7 and 8")
     if args.save or args.show:
         return "eval --save/--show need visuals/figures.py: ROADMAP Queue 1 item 7"
-    if 'nuscenes' in args.dataset:
-        return "eval --dataset nuscenes runs the Trainer's evaluate: ROADMAP Queue 1 item 6"
     if args.dp_devices > 1:
         return "eval --dp_devices > 1 needs device meshes: ROADMAP Queue 1 item 9"
     return None
@@ -155,7 +202,7 @@ def evaluate(args):
     refusal = _eval_refusal(args)
     if refusal:
         raise SystemExit(refusal)
-    if args.dataset != 'kitti':
+    if 'nuscenes' not in args.dataset and args.dataset != 'kitti':
         raise ValueError("Option not recognized")
     gen = None
     if args.generate:
@@ -167,6 +214,8 @@ def evaluate(args):
         print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
               f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
               f"(precision {net.precision}, device {net.device})")
+    if 'nuscenes' in args.dataset:
+        return gen, evaluate_nuscenes(args)
     from .eval import EvalKitti
     kitti_eval = EvalKitti(args)
     kitti_eval.run()
@@ -174,23 +223,69 @@ def evaluate(args):
     return gen, kitti_eval
 
 
+def evaluate_nuscenes(args):
+    """`eval --dataset nuscenes`: the Trainer's evaluate of `--model` on
+    `--joints`' val split; returns the Trainer. The eval namespace lacks the
+    training-only flags, which take the training defaults."""
+    from .train import Trainer
+    for attr, default in (('out', None), ('epochs', 0), ('bs', 512), ('lr', 0.002),
+                          ('sched_step', 30), ('sched_gamma', 0.98), ('r_seed', 1),
+                          ('auto_tune_mtl', False), ('no_save', True), ('print_loss', False)):
+        if not hasattr(args, attr):
+            setattr(args, attr, default)
+    training = Trainer(args)
+    training.evaluate(load=True, model=args.model, debug=False)
+    return training
+
+
+def prep(args):
+    """`prep`: PreprocessNuscenes for a nuScenes dataset, else
+    PreprocessKitti (`--activity`: the social-distance gt files); returns
+    the preprocessor."""
+    if 'nuscenes' in args.dataset:
+        from .prep.preprocess_nu import PreprocessNuscenes
+        preprocessor = PreprocessNuscenes(args.dir_ann, args.dir_nuscenes, args.dataset,
+                                          args.iou_min)
+        preprocessor.run()
+        return preprocessor
+    from .prep import PreprocessKitti
+    preprocessor = PreprocessKitti(args.dir_ann, mode=args.mode, iou_min=args.iou_min)
+    if args.activity:
+        preprocessor.process_activity()
+    else:
+        preprocessor.run()
+    return preprocessor
+
+
+def train(args):
+    """`train`: Trainer.train, then evaluate (which saves the checkpoint);
+    returns the Trainer."""
+    from .train import Trainer
+    training = Trainer(args)
+    training.train()
+    training.evaluate()
+    return training
+
+
 def main(argv=None):
     """Parse argv (sys.argv when None) and run; returns predict's engine
-    (None under --mode keypoints), or eval's (GenerateKitti or None,
-    EvalKitti)."""
+    (None under --mode keypoints), prep's preprocessor, train's Trainer, or
+    eval's (GenerateKitti or None, EvalKitti or, for nuScenes, the
+    Trainer)."""
     args = cli(argv)
     if args.command == 'predict':
         if args.webcam:
             raise SystemExit("predict --webcam is not ported to the torch package yet")
         from .predict import predict
         return predict(args)
+    if args.command == 'prep':
+        return prep(args)
+    if args.command == 'train':
+        return train(args)
     if args.command == 'eval':
         return evaluate(args)
-    if args.command in ('prep', 'train'):
-        raise SystemExit(f"'{args.command}' is not ported to monoloco_tpu_torch yet "
-                         f"(ROADMAP Queue 1): run python -m monoloco_tpu.run "
-                         f"{args.command}")
-    raise SystemExit("no command given: python -m monoloco_tpu_torch.run predict|eval ...")
+    raise SystemExit("no command given: python -m monoloco_tpu_torch.run "
+                     "predict|prep|train|eval ...")
 
 
 if __name__ == '__main__':

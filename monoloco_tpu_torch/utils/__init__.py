@@ -19,3 +19,5 @@ from .kitti import (
     find_cluster,
     strip_to_devkit_columns,
 )
+from .logs import set_logger
+from .nuscenes import select_categories

@@ -216,7 +216,7 @@ def test_cli_generate_needs_a_card(root):
     (['--baselines'], 'items 7 and 8'),
     (['--save'], 'item 7'),
     (['--show'], 'item 7'),
-    (['--dataset', 'nuscenes'], 'item 6'),
+    (['--dataset', 'nuscenes', '--dp_devices', '2'], 'item 9'),
     (['--dp_devices', '2'], 'item 9'),
 ])
 def test_unported_eval_options_are_refused(root, capsys, extra, match):

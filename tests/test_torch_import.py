@@ -10,8 +10,8 @@ and int8, mono with MC dropout and both activities, f32 and bf16, and
 --mode keypoints), runs each bench leg, ablation variant, the roofline
 tool's rows and the latency and crossover tools once at a toy size, serves
 one request over HTTP, writes a synthetic KITTI root with images, runs `eval
---generate` and the scoring on it and the eval parity tool (whose legs are
-interpreters of their own), and then asserts that none of jax, jaxlib,
+--generate` and the scoring, `prep` and `train` on it and the eval parity
+tool (whose legs are interpreters of their own), and then asserts that none of jax, jaxlib,
 optax, matplotlib and PIL is in sys.modules (nor tabulate or yaml after the
 imports: EvalKitti imports tabulate only to print its table, where there is
 one).
@@ -126,6 +126,12 @@ _SCRIPT = textwrap.dedent("""
                                 model, '--disable-cuda'])
             assert len(os.listdir(os.path.join('data', 'kitti', 'monoloco_pp'))) == 3
             assert os.path.exists(ev.path_results)
+            # prep (image sizes from the PNG headers) and training, on the CPU.
+            prep = run.main(['prep', '--dir_ann', 'annotations'])
+            trainer = run.main(['train', '--joints', prep.path_joints, '--epochs', '1',
+                                '--hidden_size', '16', '--n_stage', '1', '--out', 'm.pkl',
+                                '--disable-cuda'])
+            assert os.path.exists('m.pkl') and trainer.best_epoch == 0
         finally:
             os.chdir(old)
         rec = eval_parity.main([tmp, '--model', model, '--disable-cuda'])
@@ -162,7 +168,11 @@ def test_port_imports_and_runs_without_jax():
             'monoloco_tpu_torch.eval.generate_kitti', 'monoloco_tpu_torch.eval.eval_kitti',
             'monoloco_tpu_torch.prep.preprocess_kitti', 'monoloco_tpu_torch.utils.kitti',
             'monoloco_tpu_torch.utils.misc', 'monoloco_tpu_torch.tools.make_synthetic_kitti',
-            'monoloco_tpu_torch.tools.eval_parity'} <= names
+            'monoloco_tpu_torch.tools.eval_parity', 'monoloco_tpu_torch.prep.transforms',
+            'monoloco_tpu_torch.prep.preprocess_nu', 'monoloco_tpu_torch.utils.nuscenes',
+            'monoloco_tpu_torch.utils.logs', 'monoloco_tpu_torch.train',
+            'monoloco_tpu_torch.train.losses', 'monoloco_tpu_torch.train.datasets',
+            'monoloco_tpu_torch.train.trainer'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

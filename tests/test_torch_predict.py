@@ -96,8 +96,8 @@ def test_image_size_reads_headers_like_pillow(name):
 
 
 @pytest.mark.parametrize('argv', [
-    ['prep', '--dir_ann', 'x'],
-    ['train', '--joints', 'x.json'],
+    ['train', '--joints', 'x.json', '--hyp'],
+    ['train', '--joints', 'x.json', '--resume', 'x.pkl'],
     ['eval', '--activity'],
     [],
 ])

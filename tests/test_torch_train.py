@@ -1,0 +1,487 @@
+"""The port's training path (`monoloco_tpu_torch.train`, the training
+forward of `models/loco.py`, `run train`) against the JAX package's, on the
+CPU at a small size (hidden 32, 2 stages).
+
+Torch cannot reproduce JAX's random streams, so the exact tests feed the
+port what JAX drew: the permutation of an epoch is
+`jax.random.permutation(fold_in(train_key, epoch), n)` and the keep-masks
+come from the key splits of `monoloco_tpu/models/loco.py`'s
+`loco_forward` (split(rng, 4); the stages' split(r[1], 2S)).
+
+Tolerances:
+- losses 1.5e-5 (PARITY.md's per-task bound);
+- the train-mode forward 1e-5, its new BN running stats 1e-6;
+- gradients before clipping within 1e-5 of their global norm;
+- per-epoch train logs 1e-4 relative, the best epoch equal; the val logs
+  see the pre-BN biases below (through BN's running means) and are held
+  to 5e-3 relative, and to 1e-3 once the JAX biases and means are put in;
+- parameters after training: the biases of the linear layers that feed a
+  BatchNorm (w1, the stages' w1 and w2, w3) get gradients of about 1e-9,
+  pure rounding (BN removes the mean), which Adam divides by |g| + 1e-8: so
+  such a bias moves by a sizeable fraction of lr in a direction set by
+  rounding, and the two frameworks can disagree there from the first step.
+  Each side moves such a bias by at most about lr a step, so the two are
+  held to 2 lr a step; every other tensor to `PARAM_TOL` after one step and
+  `PARAM_TOL_EPOCHS` after two epochs.
+"""
+
+import argparse
+import json
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from monoloco_tpu.models import init_loco_params as jax_init
+from monoloco_tpu.models import load_checkpoint as jax_load_checkpoint
+from monoloco_tpu.models import loco_forward as jax_forward
+from monoloco_tpu.network import Loco as JaxLoco
+from monoloco_tpu.train import Trainer as JaxTrainer
+from monoloco_tpu.train import losses as jax_losses
+from monoloco_tpu.train.datasets import KeypointsDataset as JaxDataset
+from monoloco_tpu_torch import run
+from monoloco_tpu_torch.models import (load_checkpoint, loco_forward, loco_forward_train,
+                                       params_from_numpy)
+from monoloco_tpu_torch.network import Loco, load_calibration, preprocess_pifpaf
+from monoloco_tpu_torch.train import Trainer, composite_losses, multitask_loss
+from monoloco_tpu_torch.train.datasets import KeypointsDataset
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HIDDEN, STAGES = 32, 2
+LOSS_TOL = 1.5e-5
+FWD_TOL, BN_TOL = 1e-5, 1e-6
+GRAD_TOL = 1e-5            # of the global norm
+LOG_RTOL = 1e-4
+VAL_LOG_RTOL = 5e-3        # val logs: BN's running means follow the pre-BN biases
+SUBST_RTOL = 1e-3          # val losses with the JAX pre-BN biases and means put in
+PARAM_TOL = 1e-5           # one Adam step, tensors not feeding a BN
+PARAM_TOL_EPOCHS = 1e-4    # two epochs (6 steps)
+PRE_BN_BIASES = (('w1', 'b'), ('w3', 'b'), ('stages', 'w1', 'b'), ('stages', 'w2', 'b'))
+LR = 0.002
+
+
+@pytest.fixture(scope='module')
+def joints_dir(tmp_path_factory):
+    """Copies of the tracked joints fixtures: training writes the dataset's
+    `.cache.pkl` sidecar beside its JSON, and the tracked ones stay as they
+    are."""
+    d = tmp_path_factory.mktemp('joints')
+    for mode in ('mono', 'stereo'):
+        shutil.copy(os.path.join(HERE, f'fixture_joints-kitti-{mode}.json'), d / f'{mode}.json')
+    return d
+
+
+def _args(joints, mode='mono', **kw):
+    base = dict(joints=str(joints), mode=mode, out=None, epochs=2, bs=128, dropout=0.0,
+                lr=LR, sched_step=4, sched_gamma=0.5, hidden_size=HIDDEN, n_stage=STAGES,
+                r_seed=3, auto_tune_mtl=False, no_save=True, print_loss=False,
+                disable_cuda=True)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _leaves_with_paths(tree, path=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves_with_paths(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def jax_keep_masks(rng, rows, hidden, p, n_stage):
+    """The keep-masks `loco_forward(train=True, rng=rng)` draws, in the
+    port's site order (after the input layer, two per stage, after w3)."""
+    r = jax.random.split(rng, 4)
+    keys = [r[0]]
+    stage = jax.random.split(r[1], 2 * n_stage).reshape(n_stage, 2, 2)
+    for i in range(n_stage):
+        keys += [stage[i][0], stage[i][1]]
+    keys.append(r[2])
+    return [torch.from_numpy(np.array(jax.random.bernoulli(k, 1.0 - p, (rows, hidden))))
+            for k in keys]
+
+
+def _batch(n, in_dim, out_dim, seed):
+    """Inputs and plausible labels: z and d in [5, 30] m, the aux flag 0/1."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, in_dim)).astype(np.float32)
+    y = np.concatenate([rng.normal(size=(n, 2)), rng.uniform(5, 30, (n, 2)),
+                        rng.normal(size=(n, 6))], axis=1)
+    if out_dim == 11:
+        y = np.concatenate([y, rng.integers(0, 2, (n, 1))], axis=1)
+    return x, y.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('mode', ['mono', 'stereo'])
+@pytest.mark.parametrize('phase', ['train', 'val'])
+@pytest.mark.parametrize('masked', [False, True], ids=['unmasked', 'masked'])
+@pytest.mark.parametrize('auto_tune', [False, True], ids=['fixed', 'log_sigmas'])
+def test_losses_match_jax(mode, phase, masked, auto_tune):
+    tasks = jax_losses.LOSS_TASKS_MONO if mode == 'mono' else jax_losses.LOSS_TASKS_STEREO
+    n_out, n_lab = (9, 10) if mode == 'mono' else (10, 11)
+    rng = np.random.default_rng(11)
+    out = rng.normal(size=(24, n_out)).astype(np.float32)
+    out[:, 2] += 15.0
+    _, y = _batch(24, 1, n_lab, 12)
+    mask = (rng.uniform(size=24) < 0.7).astype(np.float32) if masked else None
+    lambdas = tuple(float(v) for v in rng.uniform(0.5, 1.5, len(tasks)))
+    sig = rng.normal(0, 0.3, len(tasks)).astype(np.float32) if auto_tune else None
+    t = torch.from_numpy
+    j_total, j_vals = jax_losses.multitask_loss(
+        jnp.asarray(out), jnp.asarray(y), tasks, lambdas, phase=phase,
+        mask=None if mask is None else jnp.asarray(mask),
+        log_sigmas=None if sig is None else jnp.asarray(sig))
+    total, vals = multitask_loss(t(out), t(y), tasks, lambdas, phase=phase,
+                                 mask=None if mask is None else t(mask),
+                                 log_sigmas=None if sig is None else t(sig))
+    assert len(vals) == len(j_vals)
+    np.testing.assert_allclose(float(total), float(j_total), rtol=LOSS_TOL, atol=LOSS_TOL)
+    np.testing.assert_allclose([float(v) for v in vals], [float(v) for v in j_vals],
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    j_comp = jax_losses.composite_losses(jnp.asarray(out), jnp.asarray(y), tasks, phase,
+                                         mask=None if mask is None else jnp.asarray(mask))
+    comp = composite_losses(t(out), t(y), tasks, phase, mask=None if mask is None else t(mask))
+    np.testing.assert_allclose([float(v) for v in comp], [float(v) for v in j_comp],
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
+def test_custom_l1_and_gaussian_match_jax():
+    from monoloco_tpu_torch.train import custom_l1_loss, gaussian_loss_terms
+    rng = np.random.default_rng(5)
+    out = rng.uniform(1, 60, (16, 2)).astype(np.float32)
+    gt = rng.uniform(1, 60, (16, 1)).astype(np.float32)
+    mask = (rng.uniform(size=16) < 0.5).astype(np.float32)
+    for port_fn, jax_fn in ((custom_l1_loss, jax_losses.custom_l1_loss),
+                            (gaussian_loss_terms, jax_losses.gaussian_loss_terms)):
+        a = port_fn(torch.from_numpy(out[:, :1] if port_fn is custom_l1_loss else out),
+                    torch.from_numpy(gt), torch.from_numpy(mask))
+        b = jax_fn(jnp.asarray(out[:, :1] if port_fn is custom_l1_loss else out),
+                   jnp.asarray(gt), jnp.asarray(mask))
+        np.testing.assert_allclose(float(a), float(b), rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The training forward and one step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('in_dim,out_dim', [(34, 9), (68, 10)], ids=['mono', 'stereo'])
+def test_train_forward_matches_jax(in_dim, out_dim):
+    """Train-mode forward with JAX's keep-masks and a partial row mask."""
+    params, bn = jax_init(jax.random.PRNGKey(2), in_dim, out_dim, HIDDEN, STAGES)
+    x, _ = _batch(40, in_dim, 10, 3)
+    mask = np.ones(40, np.float32)
+    mask[29:] = 0.0
+    key = jax.random.PRNGKey(9)
+    j_out, j_bn = jax_forward(params, bn, jnp.asarray(x), train=True, rng=key, p_dropout=0.2,
+                              row_mask=jnp.asarray(mask))
+    p_t, bn_t = params_from_numpy(params, bn)
+    out, new_bn = loco_forward_train(p_t, bn_t, torch.from_numpy(x), 0.2,
+                                     masks=jax_keep_masks(key, 40, HIDDEN, 0.2, STAGES),
+                                     row_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(_np(out), np.asarray(j_out), rtol=0, atol=FWD_TOL)
+    for path, v in _leaves_with_paths(new_bn):
+        np.testing.assert_allclose(_np(v), np.asarray(_get(j_bn, path)), rtol=0, atol=BN_TOL,
+                                   err_msg=str(path))
+    # The running stats passed in are not touched.
+    np.testing.assert_array_equal(_np(bn_t['bn1']['mean']), np.asarray(bn['bn1']['mean']))
+    # Without a row mask, over the kept rows alone, the same outputs.
+    out_r, bn_r = loco_forward_train(p_t, bn_t, torch.from_numpy(x[:29]), 0.2,
+                                     masks=[m[:29] for m in jax_keep_masks(key, 40, HIDDEN,
+                                                                           0.2, STAGES)])
+    np.testing.assert_allclose(_np(out_r), np.asarray(j_out)[:29], rtol=0, atol=FWD_TOL)
+    for path, v in _leaves_with_paths(bn_r):
+        np.testing.assert_allclose(_np(v), np.asarray(_get(j_bn, path)), rtol=0, atol=BN_TOL)
+
+
+def test_one_row_batch_matches_jax():
+    """A last batch of one row (n % bs == 1): the JAX package's padded,
+    masked batch of one real row."""
+    params, bn = jax_init(jax.random.PRNGKey(6), 34, 9, HIDDEN, STAGES)
+    x, _ = _batch(4, 34, 10, 8)
+    mask = np.array([1, 0, 0, 0], np.float32)
+    j_out, j_bn = jax_forward(params, bn, jnp.asarray(x), train=True, rng=jax.random.PRNGKey(0),
+                              p_dropout=0.0, row_mask=jnp.asarray(mask))
+    out, new_bn = loco_forward_train(*params_from_numpy(params, bn), torch.from_numpy(x[:1]),
+                                     0.0)
+    np.testing.assert_allclose(_np(out), np.asarray(j_out)[:1], rtol=0, atol=FWD_TOL)
+    for path, v in _leaves_with_paths(new_bn):
+        np.testing.assert_allclose(_np(v), np.asarray(_get(j_bn, path)), rtol=0, atol=BN_TOL)
+
+
+def _jax_step(trainer, params, bn, x, y, rng, p_dropout):
+    """The JAX trainer's step on one batch, from its own functions: loss,
+    gradients, global norm, and the parameters after one clipped Adam
+    update at lr."""
+    tasks, lambdas = tuple(trainer.tasks), tuple(trainer.lambdas)
+
+    def batch_loss(p):
+        out, _ = jax_forward(p, bn, x, train=True, rng=rng, p_dropout=p_dropout)
+        return jax_losses.multitask_loss(out, y, tasks, lambdas)[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(batch_loss))(params)
+    gnorm = optax.global_norm(grads)
+    scale = jnp.minimum(1.0, 3.0 / (gnorm + 1e-6))
+    clipped = jax.tree_util.tree_map(lambda g: g * scale, grads)
+    opt = optax.scale_by_adam(eps=1e-8)
+    updates, _ = opt.update(clipped, opt.init(params), params)
+    new = jax.tree_util.tree_map(lambda p, u: p - LR * u, params, updates)
+    return float(loss), grads, float(gnorm), float(scale), new
+
+
+def test_one_step_matches_jax(joints_dir):
+    """Gradients before clipping, the clip scale and the parameters after one
+    Adam step, on a partial batch of 77 rows with dropout 0.2."""
+    params, bn = jax_init(jax.random.PRNGKey(4), 34, 9, HIDDEN, STAGES)
+    trainer = Trainer(_args(joints_dir / 'mono.json', dropout=0.2))
+    trainer.set_weights(params, bn)
+    x_all, y_all = trainer.datasets['train'].arrays()
+    x, y = x_all[:77], y_all[:77]
+    key = jax.random.PRNGKey(21)
+    j_loss, j_grads, j_gnorm, j_scale, j_new = _jax_step(
+        trainer, params, bn, jnp.asarray(x), jnp.asarray(y), key, 0.2)
+    masks = jax_keep_masks(key, 77, HIDDEN, 0.2, STAGES)
+
+    # Gradients before clipping, from the port's forward and loss.
+    p_t, bn_t = params_from_numpy(params, bn)
+    leaves = [v.requires_grad_(True) for _, v in _leaves_with_paths(p_t)]
+    out, _ = loco_forward_train(p_t, bn_t, torch.from_numpy(x), 0.2, masks=masks)
+    loss, _ = multitask_loss(out, torch.from_numpy(y), trainer.tasks, trainer.lambdas)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), j_loss, rtol=LOSS_TOL)
+    for (path, _), g in zip(_leaves_with_paths(p_t), grads):
+        err = np.abs(_np(g) - np.asarray(_get(j_grads, path))).max()
+        assert err <= GRAD_TOL * j_gnorm, (path, err, j_gnorm)
+
+    total, gnorm, logs = trainer.step(torch.from_numpy(x), torch.from_numpy(y), masks=masks)
+    np.testing.assert_allclose(float(total), j_loss, rtol=LOSS_TOL)
+    np.testing.assert_allclose(float(gnorm), j_gnorm, rtol=1e-5)
+    assert j_scale < 1.0          # the clip is active on this batch
+    np.testing.assert_allclose(min(1.0, 3.0 / (float(gnorm) + 1e-6)), j_scale, rtol=1e-5)
+    assert float(logs[0]) == pytest.approx(float(total) * 77, rel=1e-6)
+    for path, v in _leaves_with_paths(trainer.params):
+        err = np.abs(_np(v) - np.asarray(_get(j_new, path))).max()
+        assert err <= (2 * LR if path in PRE_BN_BIASES else PARAM_TOL), (path, err)
+
+
+# ---------------------------------------------------------------------------
+# Two epochs, evaluate, checkpoints
+# ---------------------------------------------------------------------------
+
+def _jax_trainer(args):
+    """A JAX Trainer whose `_print_losses` (called at the end of `train`
+    under print_loss) hands over its per-epoch logs."""
+    trainer = JaxTrainer(args)
+    captured = {}
+    trainer._print_losses = captured.update
+    return trainer, captured
+
+
+@pytest.mark.parametrize('auto_tune', [False, True], ids=['fixed', 'auto_tune_mtl'])
+def test_two_epochs_match_jax(joints_dir, auto_tune):
+    """Dropout 0, 260 rows in batches of 128 (the last one of 4 rows), the lr
+    halved after 4 of the 6 steps; both from the JAX init, the port fed the
+    JAX permutations.
+
+    The train logs (train-mode BN, blind to the pre-BN biases) are held to
+    1e-4 relative. The val logs run BN from its running means, which follow
+    the pre-BN biases: they are held to `VAL_LOG_RTOL` (2.0e-3 measured).
+    With the JAX pre-BN biases and running means put into the port's final
+    weights, the port's val losses come within `SUBST_RTOL` of the JAX ones
+    (2.7e-4 measured): most of the difference is theirs."""
+    args = _args(joints_dir / 'mono.json', auto_tune_mtl=auto_tune, print_loss=True)
+    jt, captured = _jax_trainer(args)
+    params0, bn0 = jt.params, jt.bn_state
+    pt = Trainer(args)
+    pt.set_weights(params0, bn0)
+    n = pt.n_train
+    assert n % args.bs and (n // args.bs + 1) * args.epochs > args.sched_step
+
+    def jax_perm(epoch):
+        perm = jax.random.permutation(jax.random.fold_in(jt.train_key, epoch), n)
+        return torch.from_numpy(np.asarray(perm, np.int64))
+
+    pt._permutation = jax_perm
+    pt.print_loss = False
+    assert pt.train() == jt.train()
+    assert pt.best_epoch == jt.best_epoch
+    for phase, rtol in (('train', LOG_RTOL), ('val', VAL_LOG_RTOL)):
+        for name in ['all'] + list(jt.tasks):
+            np.testing.assert_allclose(pt.epoch_losses[phase][name],
+                                       captured[phase][name], rtol=rtol,
+                                       err_msg=f'{phase} {name}')
+    steps = pt.n_steps
+    for path, v in _leaves_with_paths(pt.params):
+        err = np.abs(_np(v) - np.asarray(_get(jt.params, path))).max()
+        bound = 2 * LR * steps if path in PRE_BN_BIASES else PARAM_TOL_EPOCHS
+        assert err <= bound, (path, err)
+    for path, v in _leaves_with_paths(pt.bn_state):
+        err = np.abs(_np(v) - np.asarray(_get(jt.bn_state, path))).max()
+        assert err <= (2 * LR * steps if path[-1] == 'mean' else PARAM_TOL_EPOCHS), (path, err)
+    if auto_tune:
+        np.testing.assert_allclose(_np(pt.log_sigmas), np.asarray(jt.log_sigmas),
+                                   atol=PARAM_TOL_EPOCHS)
+
+    params, bn = params_from_numpy(pt.final_params, pt.final_bn_state)
+    for path in PRE_BN_BIASES:
+        _get(params, path[:-1])[path[-1]] = torch.tensor(
+            np.asarray(_get(jt.final_params, path)))
+    for path, _ in _leaves_with_paths(bn):
+        if path[-1] == 'mean':
+            _get(bn, path[:-1])['mean'] = torch.tensor(
+                np.asarray(_get(jt.final_bn_state, path)))
+    j_val = np.asarray(jt._val_metrics(jt.final_params, jt.log_sigmas, jt.final_bn_state,
+                                       jt.x_va, jt.y_va))
+    np.testing.assert_allclose(_np(pt.val_metrics(params, bn)), j_val, rtol=SUBST_RTOL)
+
+
+@pytest.mark.parametrize('mode', ['mono', 'stereo'])
+def test_evaluate_matches_jax(joints_dir, mode):
+    """Per-cluster statistics of `evaluate()` on the same (JAX-initialized)
+    weights."""
+    args = _args(joints_dir / f'{mode}.json', mode=mode, epochs=0)
+    jt = JaxTrainer(args)
+    pt = Trainer(args)
+    pt.set_weights(jt.params, jt.bn_state)
+    j_err, _ = jt.evaluate()
+    p_err, _ = pt.evaluate()
+    assert set(p_err['val']) == set(j_err['val'])
+    for clst, stats in j_err['val'].items():
+        if clst == 'sigmas':
+            continue
+        assert set(p_err['val'][clst]) == set(stats), clst
+        for key, v in stats.items():
+            np.testing.assert_allclose(p_err['val'][clst][key], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=f'{clst} {key}')
+
+
+def test_port_checkpoint_loads_and_serves_in_both_packages(joints_dir, tmp_path):
+    out = tmp_path / 'port.pkl'
+    pt = Trainer(_args(joints_dir / 'mono.json', epochs=1, no_save=False, out=str(out),
+                       auto_tune_mtl=True, dropout=0.2))
+    pt.train()
+    pt.evaluate()
+    params, bn, meta = jax_load_checkpoint(str(out))
+    assert meta['mode'] == 'mono' and meta['hidden_size'] == HIDDEN
+    assert meta['epoch'] == 1 and meta['best_epoch'] == 0 and tuple(meta['tasks']) == pt.tasks
+    x = np.asarray(pt.datasets['val'].arrays()[0])
+    j_out, _ = jax_forward(params, bn, jnp.asarray(x))
+    with torch.no_grad():
+        out_t = loco_forward(pt.params, pt.bn_state, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(out_t), np.asarray(j_out), rtol=1e-5, atol=1e-5)
+    import pickle
+    with open(out, 'rb') as f:
+        blob = pickle.load(f)
+    assert blob['log_sigmas'].shape == (len(pt.tasks),) and 'opt_state' not in blob
+
+    with open(os.path.join(HERE, 'fixture_002282.pifpaf.json')) as f:
+        anns = json.load(f)
+    kk = load_calibration('kitti', (1238, 374))
+    _, keypoints = preprocess_pifpaf(anns, im_size=(1238, 374))
+    net = Loco(str(out), mode='mono', device='cpu')
+    jnet = JaxLoco(str(out), mode='mono')
+    dic, jdic = net.forward(keypoints, kk), jnet.forward(keypoints, kk)
+    for key in ('xyzd', 'd', 'bi', 'h', 'w', 'l', 'ori'):
+        np.testing.assert_allclose(dic[key], np.asarray(jdic[key]), rtol=1e-5, atol=1e-5,
+                                   err_msg=key)
+
+
+def test_jax_trainer_checkpoint_loads_in_the_port(joints_dir, tmp_path):
+    out = tmp_path / 'jax.pkl'
+    jt = JaxTrainer(_args(joints_dir / 'mono.json', epochs=0, no_save=False, out=str(out)))
+    jt.evaluate()
+    params, bn, meta = load_checkpoint(str(out))
+    assert meta['hidden_size'] == HIDDEN
+    for path, v in _leaves_with_paths(params):
+        np.testing.assert_array_equal(_np(v), np.asarray(_get(jt.params, path)))
+    for path, v in _leaves_with_paths(bn):
+        np.testing.assert_array_equal(_np(v), np.asarray(_get(jt.bn_state, path)))
+    net = Loco(str(out), mode='mono', device='cpu')
+    assert net.forward(np.ones((2, 3, 17), np.float32) * 100, np.eye(3)) is not None
+
+
+def test_dataset_sidecar_is_shared_with_jax(joints_dir, tmp_path):
+    """Each package reads the `.cache.pkl` sidecar the other wrote (marked
+    by a version only the sidecar holds) and gets the same arrays."""
+    import pickle
+    for writer, reader in ((KeypointsDataset, JaxDataset), (JaxDataset, KeypointsDataset)):
+        path = str(tmp_path / f'{writer.__module__}.json')
+        shutil.copy(joints_dir / 'stereo.json', path)
+        w = writer(path, 'train')
+        with open(path + '.cache.pkl', 'rb') as f:
+            cached = pickle.load(f)
+        cached['version'] = 'from the sidecar'
+        with open(path + '.cache.pkl', 'wb') as f:
+            pickle.dump(cached, f)
+        r = reader(path, 'train')
+        assert r.get_version() == 'from the sidecar'
+        np.testing.assert_array_equal(r.arrays()[0], w.arrays()[0])
+        np.testing.assert_array_equal(r.arrays()[1], w.arrays()[1])
+        assert r.names_all == w.names_all
+        x, y, n = r.get_cluster_annotations('20')
+        x2, y2, n2 = w.get_cluster_annotations('20')
+        assert n == n2 and np.array_equal(x, x2) and np.array_equal(y, y2)
+
+
+# ---------------------------------------------------------------------------
+# The CLI
+# ---------------------------------------------------------------------------
+
+def test_cli_prep_then_train_then_eval_nuscenes(tmp_path, monkeypatch):
+    """`run prep` on a synthetic KITTI tree, `run train --disable-cuda` on its
+    joints, and `run eval --dataset nuscenes` (the Trainer's evaluate) on the
+    checkpoint."""
+    from monoloco_tpu_torch.tools import make_synthetic_kitti
+    make_synthetic_kitti.make_dataset(str(tmp_path), n_train=6, n_val=3, seed=2)
+    monkeypatch.chdir(tmp_path)
+    prep = run.main(['prep', '--dir_ann', 'annotations'])
+    assert prep.dic_jo['train']['X'] and prep.dic_jo['val']['X']
+    trainer = run.main(['train', '--joints', prep.path_joints, '--epochs', '2', '--bs', '16',
+                        '--hidden_size', '32', '--n_stage', '1', '--out', 'model.pkl',
+                        '--disable-cuda'])
+    assert len(trainer.epoch_losses['val']['d']) == 2 and os.path.exists('model.pkl')
+    assert os.path.exists('model.txt')            # the training log
+    ev = run.main(['eval', '--dataset', 'nuscenes', '--joints', prep.path_joints, '--model',
+                   'model.pkl', '--hidden_size', '32', '--n_stage', '1', '--disable-cuda'])[1]
+    assert isinstance(ev, Trainer)
+    for key, v in _leaves_with_paths(ev.params):
+        np.testing.assert_array_equal(_np(v), _np(_get(trainer.params, key)))
+
+
+@pytest.mark.parametrize('extra,match', [
+    (['--resume', 'x.pkl'], 'item 6'),
+    (['--out', 'x.orbax'], 'item 6'),
+    (['--dp_devices', '2'], 'item 9'),
+    (['--tp_devices', '2'], 'item 9'),
+])
+def test_refused_train_options(extra, match, joints_dir):
+    with pytest.raises(SystemExit) as exc:
+        run.main(['train', '--joints', str(joints_dir / 'mono.json'), '--disable-cuda']
+                 + extra)
+    assert match in str(exc.value)
+
+
+def test_train_needs_a_card_without_disable_cuda(joints_dir):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: training runs on it')
+    with pytest.raises(RuntimeError, match='no CUDA card'):
+        run.main(['train', '--joints', str(joints_dir / 'mono.json'), '--no_save'])
