@@ -98,7 +98,8 @@ to the CPU):
     1,16,256,4096` (default, bf16, int8); `tools.bench_int8_crossover` at 16
     to 131072 rows. Every JSON line printed, every checksum finite.
  18. KITTI txt generation and ALE/ALP evaluation through the entry point:
-    a hard-mode synthetic KITTI root (seed 1, 3769 val scenes, no images,
+    a hard-mode synthetic KITTI root (seed 1, 1000 val scenes, cut from
+    KITTI's 3769 to make room for phases 24-28; no images,
     `tools.make_synthetic_kitti`), then `run.main(['eval', '--generate',
     ...])` with phase 4's checkpoint at float32, int8 and bf16 (64-image
     chunks, one dispatch each: every int8 chunk launches dyn8, every bf16
@@ -108,7 +109,7 @@ to the CPU):
     rows and detections, int8 and bf16 distances within 0.02 mean relative
     of float32's. The int8 run is under torch.profiler for the device's
     busy share. Then MonStereo (phase 9's weights, `--mode stereo`) over the
-    same 3769 pairs at float32 and int8: distances within the dyn8 budget
+    same 1000 pairs at float32 and int8: distances within the dyn8 budget
     where both chose the same right pose (GenerateKitti's `aux_idx`), the
     share that did not printed.
  19. dyn8 and K1-bf16 against their plain versions (PERF.md section 2's
@@ -117,10 +118,13 @@ to the CPU):
  20. The int8 and bf16 end-metric A/B: `tools.eval_parity` (three
     interpreters, float32, int8, bf16) on the JAX-trained byte-compat
     checkpoint (hidden 128, trained on easy-mode seed 11) over an easy-mode
-    root of seed 12, 3769 val scenes: int8 and bf16 ALE (all) within 2% of
+    root of seed 12, 1000 val scenes (3769 before phases 24-28; phase 26
+    holds the same A/B at full volume on a checkpoint trained on the
+    card): int8 and bf16 ALE (all) within 2% of
     float32's, each ALP gate within 1 point, every chunk through its kernel.
  21. Prep through the entry point: `run prep` on a hard-mode synthetic KITTI
-    tree (1000 train + 300 val scenes, seed 21, images written, so image
+    tree (600 train + 300 val scenes, seed 21, cut from 1000 train to make
+    room for phases 24-28; images written, so image
     sizes come from the PNG headers), mono and stereo; the wall, rows per
     phase and file sizes printed, every row's inputs its keypoints through
     K^-1.
@@ -132,17 +136,60 @@ to the CPU):
     trajectories part), then 10 steps with each CPU step taken from the
     card's state before it (weights, BN statistics, Adam moments and
     count), losses and gradient norms (before clipping) within 1e-4
-    relative. Then `run train` for 30 epochs at float32, tensorfloat32 and
-    bf16, and MonStereo (68 -> 10) for 5 at float32: steps/s, samples/s, an
+    relative. Then `run train` for 10 epochs at float32, tensorfloat32 and
+    bf16, and MonStereo (68 -> 10) for 3 at float32 (cut from 30 and 5 to
+    make room for phases 24-28): steps/s, samples/s, an
     epoch's wall, the device's busy share of one epoch (torch.profiler);
     the val d loss must fall from epoch 0 to the best epoch, and no serving
     kernel launches.
  23. The float32 checkpoint of phase 22 through `eval --generate` and
     EvalKitti on the tree's 300 val scenes: ALE/ALP printed, not bounded,
     as the entry point scores and with every detection kept.
+ 24. `run train --resume` at full width (hidden 1024, bs 512) on phase 21's
+    mono joints: 6 epochs straight against 3, then a resume for 3 more,
+    the final train and val losses within 1e-4 (rtol and atol) and the
+    best epoch equal (the largest differences printed); a zero-epoch
+    resume keeps the best weights bit for bit and the meta's epoch. The
+    straight run's checkpoint serves phase 28.
+ 25. `run train --hyp` at the real search space (hidden 512/1024/2048, bs
+    64-1024, 3 stages), multiplier 3 (18 trials), 2 epochs a trial,
+    serial then stacked (MONOLOCO_TPU_HYP_PARALLEL=1): group sizes, walls,
+    each trial's best val d on both paths. Trials of a group of one equal
+    their serial runs; the stacked trials part from theirs after a few
+    steps, as the card and the CPU do (phase 22), so the largest group's
+    first 5 stacked steps are each held against its trials' own Trainers
+    from the stacked state: losses and gradient norms within 1e-4
+    relative, the clipped gradients within 1e-5 of their norm, the
+    weights after the update within 2 lr.
+ 26. `tools.eval_parity --train` as a user runs it (stages and legs in
+    subprocesses): the hard synthetic KITTI of the JAX head-to-head
+    (dataset seed 7, 2400 + 2400 scenes), prep, 500 epochs of training at
+    the reference's configuration on the card, generation and EvalKitti
+    at float32, int8 and bf16. The float32 leg within 3% of the JAX
+    package's ALE (all) 1.290 m, ALP <1m within 2 points of 42.38, and
+    7253 matched rows; int8 and bf16 within 2% ALE and 1 point ALP of
+    float32, every chunk through its kernel; the training wall, samples/s
+    and the busy share of one epoch printed.
+ 27. The same path for stereo (dataset seed 8), cut to fit the time limit
+    to 200 + 200 scenes, 5 epochs and the float32 leg: it runs on the
+    card and scores finite ALE/ALP over matched rows. The full-volume
+    stereo comparison (928 + 942 scenes, 500 epochs: within 5% of the JAX
+    package's 0.761 m, 2 points of 56.44, exactly 2622 rows) is the tool's
+    own run, `python -m monoloco_tpu_torch.tools.eval_parity ROOT --train
+    --mode stereo`, recorded in PERF.md.
+ 28. The eval verticals through the entry point on phase 21's tree: `prep
+    --activity`, then `eval --activity --dataset kitti` under int8 (dyn8
+    on the frames of 9 or more detections); `eval --geometric` and `eval
+    --variance`; `eval --generate --baselines` (mono) under int8 with a
+    legacy checkpoint from `init_monoloco_params`, the three trees alike;
+    `eval --save` (the JAX figure names where matplotlib is installed,
+    else the exit naming it); `predict --webcam --output_types json` over
+    8 frames on stub cv2 and openpifpaf, with `Loco` on the card under
+    int8.
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12, 13, 16, 17, 18 and 20, each with every count set to 0 just
-before it; phase 20's from its legs' own processes); a count is one
+8, 9, 11, 12, 13, 16, 17, 18, 20 and 26-28, each with every count set to 0
+just before it; phases 20, 26 and 27 from their legs' own processes); a
+count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
 2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
 entry has its time, its plain version's, the bound (the larger of its
@@ -220,18 +267,29 @@ BF16_BUDGET = 0.02         # bf16 dds_pred vs float32, mean relative
 SERVE_IM_SIZE = (1238, 374)        # phases 15-16: the fixture as a serve request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_DETS = 64, 8, 16
 CROSSOVER_ROWS = '16,32,64,128,256,512,1024,2048,8192,131072'
-GEN_TRAIN, GEN_VAL = 16, 3769      # phases 18-20: KITTI's validation split, in scenes
+GEN_TRAIN, GEN_VAL = 16, 1000      # phases 18-20 (KITTI's validation split is 3769 scenes)
 GEN_CHUNK = 64                     # GenerateKitti's images a dispatch
 GEN_PRECISIONS = ('float32', 'int8', 'bf16')
 AB_SEED = 12               # phase 20's dataset; the checkpoint was trained on seed 11
 AB_ALE_PCT = 2.0           # phase 20: int8 and bf16 ALE (all) within 2% of float32's,
 AB_ALP_POINTS = 1.0        # and each ALP gate within 1 point
-PREP_TRAIN, PREP_VAL, PREP_SEED = 1000, 300, 21    # phase 21's synthetic tree, hard mode
+PREP_TRAIN, PREP_VAL, PREP_SEED = 600, 300, 21     # phase 21's synthetic tree, hard mode
 TRAIN_BS, TRAIN_DROPOUT = 512, 0.2                  # phase 22: MonoLoco++'s training defaults
 PARITY_STEPS = 10
 TRAIN_PARITY_TOL = 1e-4    # card vs CPU, loss and gradient norm a step, relative
 TRAIN_PRECISIONS = ('float32', 'tensorfloat32', 'bf16')
-TRAIN_EPOCHS, STEREO_TRAIN_EPOCHS = 30, 5
+TRAIN_EPOCHS, STEREO_TRAIN_EPOCHS = 10, 3       # phase 22, cut to fit phases 24-28
+RESUME_EPOCHS = 3          # phase 24: 2 x 3 straight against 3 + resume 3
+RESUME_TOL = 1e-4          # phase 24: final val losses, rtol and atol (tests/test_extras.py)
+HYP_MULTIPLIER, HYP_EPOCHS, HYP_SEED = 3, 2, 1      # phase 25: 18 trials, 2 epochs each
+HYP_SYNC_STEPS = 5         # phase 25: stacked steps each checked against the trials' own
+HYP_STEP_TOL = 1e-4        # phase 25: a step's loss and gradient norm, relative (phase 22's)
+HYP_GRAD_TOL = 1e-5        # phase 25: a step's clipped gradients, of their global norm
+FULL_ALE_PCT = {'mono': 3.0, 'stereo': 5.0}   # phases 26-27: float32 ALE (all) vs the JAX mean
+FULL_ALP_POINTS = 2.0      # phases 26-27: ALP <1m vs the JAX mean
+FULL_EPOCHS = {'mono': 500, 'stereo': 5}       # stereo cut to fit the time limit (phase 27)
+STEREO_SMOKE_SCENES = 200       # phase 27: train and val scenes each
+WEBCAM_FRAMES = 8          # phase 28
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -240,6 +298,14 @@ PEAK_BYTES = 3.35e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixture_002282.png')
 GOLD = os.path.join(REPO, 'tests', 'goldens', 'byte_compat')
+
+
+_T0 = time.perf_counter()
+
+
+def banner(text, **_):
+    """A phase's first line, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {text}", flush=True)
 
 
 def fail(msg):
@@ -320,7 +386,7 @@ def make_pairing_inputs(m, r, device):
 
 
 def phase_device():
-    print("== phase 1: device", flush=True)
+    banner("== phase 1: device", flush=True)
     smi = smi_line()
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -338,7 +404,7 @@ def phase_device():
 
 def phase_kernel(packed, ms):
     from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto, launches
-    print(f"== phase 2: kernel vs plain, hidden {HIDDEN}, {STAGES} stages "
+    banner(f"== phase 2: kernel vs plain, hidden {HIDDEN}, {STAGES} stages "
           f"(tolerance: mean rel {TOL_MEAN_REL}, max abs {TOL_MAX_ABS})", flush=True)
     worst = 0.0
     for m in ms:
@@ -364,7 +430,7 @@ def phase_kernel(packed, ms):
 
 def phase_rows(packed):
     from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto
-    print("== phase 3: row independence", flush=True)
+    banner("== phase 3: row independence", flush=True)
     x = make_inputs(512, 'cuda')
     full = fused_loco_forward_dyn8_auto(packed, x)
     for m in (1, 8, 77, 512):
@@ -426,7 +492,7 @@ def _main_model(tmp):
 
 def phase_main_path(params, bn_state, tmp):
     from monoloco_tpu_torch.models import save_checkpoint
-    print("== phase 4: main path, python -m monoloco_tpu_torch.run predict", flush=True)
+    banner("== phase 4: main path, python -m monoloco_tpu_torch.run predict", flush=True)
     model = _main_model(tmp)
     save_checkpoint(model, params, bn_state, meta={'seed': SEED})
     img_dir = os.path.join(tmp, 'images')
@@ -457,7 +523,7 @@ def phase_main_path(params, bn_state, tmp):
 
 def phase_reference():
     from monoloco_tpu_torch.network import Loco, load_calibration, preprocess_pifpaf
-    print("== phase 5: f32 engine vs the reference golden", flush=True)
+    banner("== phase 5: f32 engine vs the reference golden", flush=True)
     os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
     with open(os.path.join(GOLD, 'manifest.json')) as f:
         im_size = tuple(json.load(f)['im_size'])
@@ -503,7 +569,7 @@ LAYERED = ('fused_mlp_bf16', 'fused_mlp_f32', 'dyn8_mlp', 'int8_static_mlp', 'w8
 def phase_times(kernels, folded, smi):
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.bench import tree_map
-    print(f"== phase 6: times at {TIMING_ROWS} x {IN_DIM} on {smi}", flush=True)
+    banner(f"== phase 6: times at {TIMING_ROWS} x {IN_DIM} on {smi}", flush=True)
     x = make_inputs(TIMING_ROWS, 'cuda')
     folded_bf16 = tree_map(lambda t: t.to(torch.bfloat16), folded)
     paths = {'f32 folded (torch.matmul)': lambda v: folded_forward(folded, v),
@@ -710,7 +776,7 @@ def _compare(name, rule, out, ref, f32_ref):
 def phase_new_kernels(kernels, folded, stereo):
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.ops import launches
-    print(f"== phase 7: K1, K4, K5 and the layer kernels vs plain, hidden {HIDDEN}, "
+    banner(f"== phase 7: K1, K4, K5 and the layer kernels vs plain, hidden {HIDDEN}, "
           f"{STAGES} stages", flush=True)
     worst = {}
     for name, (entry, plain, packed) in kernels.items():
@@ -846,7 +912,7 @@ def phase_bench():
     from monoloco_tpu_torch import bench
     from monoloco_tpu_torch.ops import launches
     from monoloco_tpu_torch.tools import bench_pallas_crossover, bench_pallas_int8
-    print("== phase 8: python -m monoloco_tpu_torch.bench and the ablation tools",
+    banner("== phase 8: python -m monoloco_tpu_torch.bench and the ablation tools",
           flush=True)
     _zero_launches()
     os.environ.pop('MONOLOCO_TPU_PRECISION', None)
@@ -938,7 +1004,7 @@ def phase_stereo(params, bn_state, tmp):
     launch counts of the int8 run."""
     from monoloco_tpu_torch.models import fold_eval_params, folded_forward, save_checkpoint
     from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
-    print(f"== phase 9: main path, python -m monoloco_tpu_torch.run predict --mode stereo, "
+    banner(f"== phase 9: main path, python -m monoloco_tpu_torch.run predict --mode stereo, "
           f"{STEREO_PAIRS} pairs", flush=True)
     model = os.path.join(tmp, f'monstereo_h{HIDDEN}.pkl')
     save_checkpoint(model, params, bn_state, meta={'seed': SEED + 2})
@@ -1000,7 +1066,7 @@ def phase_dyn8_stereo(s_packed, s_folded):
     against its plain version under the int8 rule, and row independence."""
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.ops import dyn8_forward_plain, fused_loco_forward_dyn8_auto, launches
-    print(f"== phase 10: dyn8 vs plain at 68 -> 10, hidden {HIDDEN}, {STAGES} stages, on "
+    banner(f"== phase 10: dyn8 vs plain at 68 -> 10, hidden {HIDDEN}, {STAGES} stages, on "
           f"stereo pairing rows", flush=True)
     worst = 0.0
     for m, r in STEREO_PAIRINGS:
@@ -1043,7 +1109,7 @@ def phase_relu_chain():
     cluster at 1 and 257); rows bit-equal at m = 512 and a ragged 131071.
     Returns the max abs error against the plain version, unscaled."""
     from monoloco_tpu_torch.ops import fused_mlp, launches, relu_chain, relu_chain_plain
-    print(f"== phase 7b: relu_chain (K6) vs plain at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}",
+    banner(f"== phase 7b: relu_chain (K6) vs plain at {TIMING_ROWS} x {HIDDEN} x {CHAIN_LAYERS}",
           flush=True)
     x, ws = relu_chain_inputs()
     before = launches['relu_chain_bf16']
@@ -1086,7 +1152,7 @@ def phase_roofline():
     """The roofline tool as a user runs it; returns its launch counts."""
     from monoloco_tpu_torch.ops import launches
     from monoloco_tpu_torch.tools import bench_roofline
-    print("== phase 11: python -m monoloco_tpu_torch.tools.bench_roofline", flush=True)
+    banner("== phase 11: python -m monoloco_tpu_torch.tools.bench_roofline", flush=True)
     _zero_launches()
     rows = bench_roofline.main([])
     torch.cuda.synchronize()
@@ -1171,7 +1237,7 @@ def phase_mc(tmp):
     the epi of the float32 run, the launch counts of the int8 run)."""
     from monoloco_tpu_torch.network import Loco
     from monoloco_tpu_torch.ops import launches
-    print(f"== phase 12: main path with --n_dropout {MC_DROPOUT} --activities social_distance "
+    banner(f"== phase 12: main path with --n_dropout {MC_DROPOUT} --activities social_distance "
           f"raise_hand, {PREDICT_IMAGES} images", flush=True)
     model, img_dir = _main_model(tmp), os.path.join(tmp, 'images')
     epis = {}
@@ -1231,7 +1297,7 @@ def phase_precisions(tmp, f32_dicts, f32_epi, dyn8):
     float32; K1-bf16 timed at the predict dispatch beside dyn8. Returns the
     launch counts of the bf16 run."""
     from monoloco_tpu_torch.ops import fused_loco_forward, launches
-    print(f"== phase 13: main path at bf16 and tensorfloat32, {PREDICT_IMAGES} images",
+    banner(f"== phase 13: main path at bf16 and tensorfloat32, {PREDICT_IMAGES} images",
           flush=True)
     model, img_dir = _main_model(tmp), os.path.join(tmp, 'images')
     d32 = np.concatenate([d['dds_pred'] for d in f32_dicts])
@@ -1279,7 +1345,7 @@ def phase_keypoints_profile(tmp):
     run under --profile gives the device's busy share of predict."""
     from monoloco_tpu_torch import predict, run
     from monoloco_tpu_torch.ops import launches
-    print("== phase 14: --mode keypoints, and predict under --profile", flush=True)
+    banner("== phase 14: --mode keypoints, and predict under --profile", flush=True)
     img_dir = os.path.join(tmp, 'images')
     out_dir = os.path.join(tmp, 'keypoints')
     _zero_launches()
@@ -1389,7 +1455,7 @@ def phase_serve_entry(tmp):
     import signal
     import threading
     from monoloco_tpu_torch.network import Loco
-    print(f"== phase 15: python -m monoloco_tpu_torch.serve under int8, {SERVE_CLIENTS} clients "
+    banner(f"== phase 15: python -m monoloco_tpu_torch.serve under int8, {SERVE_CLIENTS} clients "
           f"x {SERVE_REQUESTS} requests x {SERVE_DETS} detections", flush=True)
     model = _main_model(tmp)
     kps, boxes, kk = _fixture_request()
@@ -1535,7 +1601,7 @@ def phase_serve_kernels(tmp, s_params, s_bn):
     from monoloco_tpu_torch.models import fold_eval_params, save_checkpoint
     from monoloco_tpu_torch.network import Loco, preprocess_monstereo
     from monoloco_tpu_torch.ops import fused_loco_forward_dyn8_auto, pack_folded_weights_w8
-    print(f"== phase 16: in-process servers, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} "
+    banner(f"== phase 16: in-process servers, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} "
           f"requests", flush=True)
     model = _main_model(tmp)
     kps, _, kk = _fixture_request()
@@ -1610,7 +1676,7 @@ def phase_serve_tools():
     bench_int8_crossover as a user runs them; returns the launch counts."""
     from monoloco_tpu_torch.ops import launches
     from monoloco_tpu_torch.tools import bench_int8_crossover, bench_latency, bench_serve
-    print("== phase 17: the serving tools (bench_serve, bench_latency, bench_int8_crossover)",
+    banner("== phase 17: the serving tools (bench_serve, bench_latency, bench_int8_crossover)",
           flush=True)
     _zero_launches()
     closed = ['--clients', '32', '--requests', '20', '--dets', '16']
@@ -1711,7 +1777,7 @@ def phase_generate(tmp, model, s_params, s_bn):
     counts)."""
     from monoloco_tpu_torch.models import save_checkpoint
     from monoloco_tpu_torch.tools import eval_parity, make_synthetic_kitti
-    print(f"== phase 18: eval --generate + EvalKitti through the entry point, {GEN_VAL} "
+    banner(f"== phase 18: eval --generate + EvalKitti through the entry point, {GEN_VAL} "
           f"val scenes (hard mode), {GEN_CHUNK}-image chunks", flush=True)
     root = os.path.join(tmp, 'kitti_hard')
     t0 = time.perf_counter()
@@ -1785,7 +1851,7 @@ def phase_generate_chunk(root, model, kernels, folded):
         kks[i] = kk
     x = preprocess_monoloco(torch.from_numpy(kps).cuda(), torch.from_numpy(kks).cuda())
     x = x.reshape(-1, IN_DIM).contiguous()
-    print(f"== phase 19: dyn8 and K1-bf16 vs plain on a generate chunk: {len(chunk)} images x "
+    banner(f"== phase 19: dyn8 and K1-bf16 vs plain on a generate chunk: {len(chunk)} images x "
           f"{m_bucket} detections = {x.shape[0]} rows", flush=True)
     f32_ref = folded_forward(folded, x)
     worst, ms = {}, {}
@@ -1809,7 +1875,7 @@ def phase_int8_ab(tmp):
     128) over an easy-mode val set of another seed than its training set's;
     returns the launch counts of its legs."""
     from monoloco_tpu_torch.tools import eval_parity, make_synthetic_kitti
-    print(f"== phase 20: int8 and bf16 end-metric A/B (tools.eval_parity), trained checkpoint, "
+    banner(f"== phase 20: int8 and bf16 end-metric A/B (tools.eval_parity), trained checkpoint, "
           f"{GEN_VAL} val scenes (easy mode, seed {AB_SEED})", flush=True)
     root = os.path.join(tmp, 'kitti_ab')
     make_synthetic_kitti.make_dataset(root, n_train=GEN_TRAIN, n_val=GEN_VAL, seed=AB_SEED,
@@ -1817,6 +1883,8 @@ def phase_int8_ab(tmp):
     rec = eval_parity.main([root, '--model', os.path.join(GOLD, 'model_tpu.pkl')])
     legs, ref = rec['legs'], rec['legs']['float32']
     for p, kernel in (('int8', 'dyn8_mlp'), ('bf16', 'fused_mlp_bf16')):
+        if p not in legs:
+            continue
         leg = legs[p]
         check(leg['launches'] == {kernel: leg['dispatches']},
               f"A/B {p}: launches {leg['launches']} for {leg['dispatches']} dispatches")
@@ -1840,7 +1908,7 @@ def phase_prep(tmp):
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.geometry.host import np_preprocess_monoloco
     from monoloco_tpu_torch.tools import make_synthetic_kitti
-    print(f"== phase 21: prep through the entry point, {PREP_TRAIN} train + {PREP_VAL} val "
+    banner(f"== phase 21: prep through the entry point, {PREP_TRAIN} train + {PREP_VAL} val "
           f"scenes (hard mode, images written)", flush=True)
     root = os.path.join(tmp, 'kitti_prep')
     t0 = time.perf_counter()
@@ -1916,7 +1984,7 @@ def phase_train_parity(joints):
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.models import n_dropout_sites, train_keep_masks
     from monoloco_tpu_torch.train import Trainer
-    print(f"== phase 22: training, card vs CPU: {PARITY_STEPS} steps at hidden {HIDDEN}, "
+    banner(f"== phase 22: training, card vs CPU: {PARITY_STEPS} steps at hidden {HIDDEN}, "
           f"{STAGES} stages, bs {TRAIN_BS}, dropout {TRAIN_DROPOUT}, float32", flush=True)
     os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
     args = run.cli(_train_args(joints, extra=('--no_save',)))
@@ -2025,7 +2093,7 @@ def phase_train(tmp, joints):
     precision (mono), and MonStereo at float32; returns the float32 mono
     checkpoint."""
     phase_train_parity(joints['mono'])
-    print(f"== phase 22: run train on the card, MonoLoco++ 34 -> 9, hidden {HIDDEN}, "
+    banner(f"== phase 22: run train on the card, MonoLoco++ 34 -> 9, hidden {HIDDEN}, "
           f"{STAGES} stages, bs {TRAIN_BS}, dropout {TRAIN_DROPOUT}, {TRAIN_EPOCHS} epochs a "
           f"precision; MonStereo 68 -> 10 at float32, {STEREO_TRAIN_EPOCHS} epochs", flush=True)
     ckpt = {}
@@ -2043,7 +2111,7 @@ def phase_trained_eval(root, model):
     from monoloco_tpu_torch.eval import EvalKitti
     from monoloco_tpu_torch.ops import launches
     from monoloco_tpu_torch.tools.eval_parity import extract_metrics
-    print(f"== phase 23: the card-trained checkpoint through eval --generate + EvalKitti, "
+    banner(f"== phase 23: the card-trained checkpoint through eval --generate + EvalKitti, "
           f"{PREP_VAL} val scenes", flush=True)
     os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
     old = os.getcwd()
@@ -2075,6 +2143,484 @@ def phase_trained_eval(root, model):
     check(not any(launches.values()), "float32 generation launched a kernel")
     check(metrics_all['matched'] > 0 and np.isfinite(metrics_all['ale']['all']),
           f"trained eval: {metrics_all}")
+
+
+def phase_resume(tmp, joints):
+    """`run train` straight for 2E epochs against E epochs, then `--resume`
+    for E more, at full width; a zero-epoch resume. Returns the straight
+    run's checkpoint."""
+    import pickle
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.models import load_checkpoint
+    banner(f"== phase 24: train --resume on the card, hidden {HIDDEN}, bs {TRAIN_BS}: "
+           f"{2 * RESUME_EPOCHS} epochs straight against {RESUME_EPOCHS} + resume "
+           f"{RESUME_EPOCHS}", flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    paths = {k: os.path.join(tmp, f'resume_{k}.pkl') for k in ('straight', 'half', 'resumed',
+                                                               'zero')}
+    t0 = time.perf_counter()
+    straight = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                                   paths['straight'])))
+    wall_straight = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run.main(_train_args(joints, extra=('--epochs', str(RESUME_EPOCHS), '--out',
+                                        paths['half'])))
+    resumed = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                                  paths['resumed'], '--resume', paths['half'])))
+    wall_resumed = time.perf_counter() - t0
+    check(straight.device.type == 'cuda' and resumed.device.type == 'cuda',
+          "resume: training did not run on the card")
+    check(resumed.start_epoch == RESUME_EPOCHS, f"resume: start epoch {resumed.start_epoch}")
+    a = np.asarray(straight.epoch_losses['val']['d'][RESUME_EPOCHS:])
+    b = np.asarray(resumed.epoch_losses['val']['d'])
+    final = {ph: [np.asarray([straight.epoch_losses[ph][n][-1] for n in names]),
+                  np.asarray([resumed.epoch_losses[ph][n][-1] for n in names])]
+             for ph in ('train', 'val') for names in [['all'] + list(straight.tasks)]}
+    diff = max(float(np.abs(x - y).max()) for x, y in final.values())
+    weights = max(float((x - y).abs().max()) for x, y in
+                  zip(_leaves(straight.final_params), _leaves(resumed.final_params)))
+    print(json.dumps({'phase': 24, 'epochs': 2 * RESUME_EPOCHS, 'val_d_straight': a.tolist(),
+                      'val_d_resumed': b.tolist(), 'max_abs_diff_final_losses': diff,
+                      'max_abs_diff_final_weights': weights,
+                      'best_epoch': [straight.best_epoch, resumed.best_epoch],
+                      'wall_s': {'straight': wall_straight, 'half_and_resume': wall_resumed}}),
+          flush=True)
+    for x, y in final.values():
+        check(np.allclose(y, x, rtol=RESUME_TOL, atol=RESUME_TOL),
+              f"resume: final losses {y} against the straight run's {x}")
+    check(resumed.best_epoch == straight.best_epoch, "resume: another best epoch")
+    # A resume with no new epochs keeps the best weights and the epoch.
+    zero = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                               paths['zero'], '--resume', paths['resumed'])))
+    with open(paths['zero'], 'rb') as f:
+        meta = pickle.load(f)['meta']
+    best_p, best_bn, _ = load_checkpoint(paths['resumed'], device=zero.device)
+    same = all(torch.equal(x, y) for x, y in zip(_leaves(zero.params), _leaves(best_p))) and all(
+        torch.equal(x, y) for x, y in zip(_leaves(zero.bn_state), _leaves(best_bn)))
+    print(f"zero-epoch resume: meta epoch {meta['epoch']}, best_val_acc {meta['best_val_acc']}, "
+          f"best weights bit for bit: {same}", flush=True)
+    check(same and meta['epoch'] == 2 * RESUME_EPOCHS
+          and meta['best_val_acc'] == resumed.best_acc,
+          f"zero-epoch resume: {meta} (best weights equal: {same})")
+    return paths['straight']
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _stacked_to_trainer(st, k, t):
+    """Put trial k of the StackedTrials `st` (weights, BN statistics, Adam
+    moments and step, update count) into the Trainer `t`."""
+    from monoloco_tpu_torch.train.hyp_tuning import _take
+    with torch.no_grad():
+        for a, b in zip(t._trainable(), st.trainable):
+            a.copy_(b[k])
+    t.bn_state = _take(st.bn_state, k)
+    for a, m, v in zip(t._trainable(), st.exp_avg, st.exp_avg_sq):
+        t.optimizer.state[a] = {'step': torch.tensor(float(st.n_steps)),
+                                'exp_avg': m[k].clone(), 'exp_avg_sq': v[k].clone()}
+    t.n_steps = st.n_steps
+
+
+def _hyp_synced_steps(joints, hyp, combos):
+    """A stacked group's steps against its trials' own Trainers, each trial
+    step taken from the stacked state before it, on the same rows and
+    keep-masks: losses and gradient norms within HYP_STEP_TOL relative, the
+    clipped gradients within HYP_GRAD_TOL of their global norm, and the
+    weights after the update within 2 lr (Adam's first steps move an
+    element by about lr whatever its gradient, so a gradient that is
+    rounding noise, as the pre-BN biases' are, can move either way).
+    Returns the worst deviations."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.models import n_dropout_sites, train_keep_masks
+    from monoloco_tpu_torch.train import Trainer
+    from monoloco_tpu_torch.train.hyp_tuning import StackedTrials
+    args = run.cli(['train', '--joints', joints, '--monocular', '--no_save'])
+    trainers = [Trainer(hyp._trial_args(args, c)) for c in combos]
+    st = StackedTrials(trainers[0], combos)
+    t0 = trainers[0]
+    perm = t0._permutation(0)
+    worst = {'loss': 0.0, 'grad_norm': 0.0, 'grads': 0.0, 'weights_over_lr': 0.0}
+    steps = min(HYP_SYNC_STEPS, t0.n_train // t0.bs)      # full batches only
+    check(steps > 0, f"hyp: {t0.n_train} rows, no full batch of {t0.bs}")
+    for s in range(steps):
+        idx = perm[s * t0.bs:(s + 1) * t0.bs]
+        masks = train_keep_masks(idx.shape[0], t0.hidden_size, n_dropout_sites(t0.n_stage),
+                                 t0.dropout, t0.gen, t0.device)
+        for k, t in enumerate(trainers):
+            _stacked_to_trainer(st, k, t)
+        losses, gnorms = st.step(t0.x_tr[idx], t0.y_tr[idx], masks)
+        for k, t in enumerate(trainers):
+            lr = t.lr_at(t.n_steps)
+            loss, gnorm, _ = t.step(t.x_tr[idx], t.y_tr[idx], masks)
+            worst['loss'] = max(worst['loss'], abs(float(losses[k]) - float(loss))
+                                / abs(float(loss)))
+            worst['grad_norm'] = max(worst['grad_norm'], abs(float(gnorms[k]) - float(gnorm))
+                                     / float(gnorm))
+            clipped = min(float(gnorm), 3.0)           # the global norm after the clip
+            for a, b in zip(t._trainable(), st.trainable):
+                worst['grads'] = max(worst['grads'],
+                                     float((a.grad - b.grad[k]).abs().max()) / clipped)
+                worst['weights_over_lr'] = max(worst['weights_over_lr'],
+                                               float((a.detach() - b.detach()[k]).abs().max())
+                                               / lr)
+    check(worst['loss'] <= HYP_STEP_TOL and worst['grad_norm'] <= HYP_STEP_TOL
+          and worst['grads'] <= HYP_GRAD_TOL and worst['weights_over_lr'] <= 2.0,
+          f"hyp: a stacked step off its trials' own steps: {worst}")
+    return worst
+
+
+def phase_hyp(tmp, joints):
+    """HypTuning at the real search space (hidden 512/1024/2048, bs 64-1024,
+    3 stages), multiplier 3, serial then stacked through `run train --hyp`;
+    then the largest stacked group's steps against its trials' own, each
+    from the stacked state (`_hyp_synced_steps`)."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.train import HypTuning
+    banner(f"== phase 25: train --hyp on the card: multiplier {HYP_MULTIPLIER} "
+           f"({6 * HYP_MULTIPLIER} trials), {HYP_EPOCHS} epochs a trial, serial then stacked",
+           flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    work = os.path.join(tmp, 'hyp')
+    os.makedirs(work, exist_ok=True)
+    old = os.getcwd()
+    os.chdir(work)
+    argv = ['train', '--joints', joints, '--hyp', '--multiplier', str(HYP_MULTIPLIER),
+            '--r_seed', str(HYP_SEED), '--epochs', str(HYP_EPOCHS), '--monocular']
+    captured = {}
+    real_train = HypTuning.train
+
+    def keep(self, args):
+        captured['hyp'] = self
+        return real_train(self, args)
+
+    HypTuning.train = keep
+    try:
+        hyp = HypTuning('x', HYP_EPOCHS, multiplier=HYP_MULTIPLIER, r_seed=HYP_SEED)
+        groups = hyp.groups()
+        sizes = {f'bs {k[0]} hidden {k[1]}': len(v) for k, v in groups.items()}
+        print(f"groups (bs, hidden, 3 stages): {sizes}", flush=True)
+        check(max(sizes.values()) >= 2, "no group stacks two trials")
+        results, walls = {}, {}
+        for path, flag in (('serial', '0'), ('stacked', '1')):
+            os.environ['MONOLOCO_TPU_HYP_PARALLEL'] = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best = run.main(argv)
+            torch.cuda.synchronize()
+            walls[path] = time.perf_counter() - t0
+            results[path] = (best, captured['hyp'].trial_results)
+    finally:
+        HypTuning.train = real_train
+        os.environ.pop('MONOLOCO_TPU_HYP_PARALLEL', None)
+        os.chdir(old)
+    acc = {p: np.asarray([r[0] for r in results[p][1]]) for p in results}
+    rel = np.abs(acc['stacked'] - acc['serial']) / np.abs(acc['serial'])
+    stacked_trials = [i for idxs in groups.values() if len(idxs) > 1 for i in idxs]
+    largest = max(groups.values(), key=len)
+    combos = hyp._trial_combos()
+    worst = _hyp_synced_steps(joints, hyp, [combos[i] for i in largest])
+    print(json.dumps({'phase': 25, 'trials': len(acc['serial']), 'wall_s': walls,
+                      'best_val_d_serial': acc['serial'].tolist(),
+                      'best_val_d_stacked': acc['stacked'].tolist(),
+                      'free_running_rel_diff_stacked_trials': {
+                          str(i): float(rel[i]) for i in stacked_trials},
+                      'best_epochs': {p: [r[1] for r in results[p][1]] for p in results},
+                      'winner': {p: {k: results[p][0].get(k) for k in
+                                     ('lr', 'bs', 'hidden_size', 'acc_val', 'best_epoch')}
+                                 for p in results},
+                      'synced_steps': {'group': f'bs {combos[largest[0]]["bs"]} hidden '
+                                                f'{combos[largest[0]]["hidden_size"]}',
+                                       'trials': len(largest), 'steps': HYP_SYNC_STEPS,
+                                       'max_rel_or_abs': worst}}), flush=True)
+    single = [i for i in range(len(rel)) if i not in stacked_trials]
+    check(np.all(np.isfinite(acc['serial'])) and np.all(np.isfinite(acc['stacked'])),
+          "hyp: a trial's val d is not finite")
+    # A group of one trains as its serial run; only the val d's sum differs
+    # (evaluate()'s masked rows against val_metrics).
+    check(all(rel[i] <= 1e-5 for i in single),
+          "hyp: a group of one (the plain Trainer) is off its serial run")
+
+
+def phase_full_volume(tmp, mode):
+    """`tools.eval_parity --train` at the JAX package's full synthetic volume
+    as a user runs it (its stages and legs in subprocesses); the float32 leg
+    against the JAX package's ALE/ALP, int8 and bf16 against float32.
+    Returns the legs' launch counts."""
+    from monoloco_tpu_torch.tools import eval_parity
+    ref = eval_parity.JAX_REFERENCE[mode]
+    epochs = FULL_EPOCHS[mode]
+    full = epochs == 500
+    n_train, n_val = ((ref['n_train'], ref['n_val']) if full else
+                      (STEREO_SMOKE_SCENES, STEREO_SMOKE_SCENES))
+    banner(f"== phase {26 if mode == 'mono' else 27}: tools.eval_parity --train, {mode}, "
+           f"{n_train} + {n_val} scenes, {epochs} epochs", flush=True)
+    root = os.path.join(tmp, f'full_{mode}')
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    if full:
+        rec = eval_parity.main([root, '--train', '--mode', mode, '--epochs', str(epochs)])
+    else:
+        # The path alone: the tool's stages and its float32 leg.
+        t0 = time.perf_counter()
+        model, rec = eval_parity.train_root(root, mode, n_train, n_val, epochs, 1, False)
+        rec['legs'] = {'float32': eval_parity.run_leg(root, model, mode, 'float32', False)}
+        rec.update(vs_jax=eval_parity.vs_jax(mode, rec['legs']['float32']),
+                   ale_all_delta_pct={}, wall_s=time.perf_counter() - t0)
+    legs, f32 = rec['legs'], rec['legs']['float32']
+    busy, wall, _, _, _ = _busy_share_of_an_epoch(rec['joints'], mode)
+    print(json.dumps({'phase': 26 if mode == 'mono' else 27, 'mode': mode, 'epochs': epochs,
+                      'n_train_rows': rec['n_train_rows'], 'train_wall_s': rec['train_wall_s'],
+                      'samples_per_s': rec['samples_per_s'], 'device': rec['device'],
+                      'device_busy_share': busy / wall, 'best_epoch': rec['best_epoch'],
+                      'float32': {'ale': f32['ale'], 'alp': f32['alp'],
+                                  'matched': f32['matched']},
+                      'vs_jax': rec['vs_jax'], 'jax_ale_all': ref['ale_all_mean'],
+                      'jax_alp_1m': ref['alp_1m_mean'],
+                      'ale_pct_vs_float32': rec['ale_all_delta_pct'],
+                      'wall_s': rec['wall_s']}), flush=True)
+    check(rec['device'].startswith('cuda'), f"{mode}: trained on {rec['device']}")
+    check(f32['matched'] == ref['matched'] if full else f32['matched'] > 0,
+          f"{mode}: {f32['matched']} matched rows, the JAX package {ref['matched']}")
+    check(np.isfinite(f32['ale']['all']), f"{mode}: ALE {f32['ale']}")
+    if full:
+        check(abs(rec['vs_jax']['ale_all_pct']) <= FULL_ALE_PCT[mode]
+              and abs(rec['vs_jax']['alp_1m_points']) <= FULL_ALP_POINTS,
+              f"{mode}: float32 ALE/ALP outside the band of the JAX package's: "
+              f"{rec['vs_jax']}")
+    for p, kernel in (('int8', 'dyn8_mlp'), ('bf16', 'fused_mlp_bf16')):
+        if p not in legs:
+            continue
+        leg = legs[p]
+        alp = {g: leg['alp'][g] - f32['alp'][g] for g in f32['alp']}
+        check(leg['launches'].get(kernel, 0) == leg['dispatches'] > 0,
+              f"{mode} {p}: launches {leg['launches']} for {leg['dispatches']} dispatches")
+        if full:
+            check(abs(rec['ale_all_delta_pct'][p]) <= AB_ALE_PCT
+                  and all(abs(v) <= AB_ALP_POINTS for v in alp.values()),
+                  f"{mode} {p}: end metric outside 2% ALE / 1 point ALP of float32: "
+                  f"{rec['ale_all_delta_pct'][p]}, {alp}")
+    check(legs['float32']['launches'] == {}, "float32 leg launched a kernel")
+    return {kernel: legs[p]['launches'].get(kernel, 0)
+            for p, kernel in (('int8', 'dyn8_mlp'), ('bf16', 'fused_mlp_bf16')) if p in legs}
+
+
+class _FakeCapture:
+    """cv2.VideoCapture of WEBCAM_FRAMES random 480 x 640 frames."""
+
+    def __init__(self, *_):
+        self.frames_left = WEBCAM_FRAMES
+
+    def isOpened(self):
+        return True
+
+    def read(self):
+        if self.frames_left == 0:
+            return False, None
+        self.frames_left -= 1
+        rng = np.random.RandomState(self.frames_left)
+        return True, rng.randint(0, 255, (480, 640, 3), np.uint8)
+
+
+def _webcam_stubs():
+    """cv2 and openpifpaf stand-ins, as tests/test_webcam.py makes them: a
+    capture of random frames, nearest resize, and one pose a frame (16 for
+    every other frame, so the padded dispatch crosses the int8 floor)."""
+    import types
+    cv2 = types.ModuleType('cv2')
+    cv2.VideoCapture = _FakeCapture
+    cv2.COLOR_BGR2RGB = 4
+
+    def resize(img, _none, fx=1.0, fy=1.0):
+        h = max(1, int(round(img.shape[0] * fy)))
+        w = max(1, int(round(img.shape[1] * fx)))
+        ys = (np.arange(h) / fy).astype(int).clip(0, img.shape[0] - 1)
+        xs = (np.arange(w) / fx).astype(int).clip(0, img.shape[1] - 1)
+        return img[ys][:, xs]
+
+    cv2.resize = resize
+    cv2.cvtColor = lambda img, code: img[..., ::-1]
+
+    class _Annotation:
+        def __init__(self, data):
+            self._data = data
+
+        def json_data(self):
+            return self._data
+
+    class Predictor:
+        calls = 0
+
+        def __init__(self, checkpoint=None):
+            pass
+
+        def numpy_images(self, images):
+            h, w = images[0].shape[:2]
+            rng = np.random.RandomState(Predictor.calls)
+            n = 16 if Predictor.calls % 2 else 1
+            Predictor.calls += 1
+            anns = []
+            for _ in range(n):
+                cx = w * rng.uniform(0.2, 0.8)
+                kps = []
+                for j in range(17):
+                    kps += [float(cx + rng.uniform(-w * 0.05, w * 0.05)),
+                            float(h * (0.2 + 0.6 * j / 16)), 0.9]
+                anns.append({'keypoints': kps, 'bbox': [cx - w * 0.1, h * 0.15, w * 0.2, h * 0.7],
+                             'score': 0.9})
+            yield [_Annotation(a) for a in anns], None, None
+
+    openpifpaf = types.ModuleType('openpifpaf')
+    openpifpaf.Predictor = Predictor
+    return cv2, openpifpaf
+
+
+def phase_verticals(root, joints, model):
+    """The eval verticals and the webcam loop through the entry point, on
+    phase 21's tree with a hidden-1024 checkpoint trained on the card.
+    Returns their launch counts."""
+    import pickle
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint
+    from monoloco_tpu_torch.ops import launches
+    banner("== phase 28: eval --activity, --geometric, --variance, --generate --baselines, "
+           "--save and predict --webcam through the entry point", flush=True)
+    counts = {}
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        # prep --activity, then eval --activity --dataset kitti under int8.
+        t0 = time.perf_counter()
+        run.main(['prep', '--dir_ann', 'annotations', '--activity'])
+        n_gt = len(os.listdir(os.path.join('data', 'kitti', 'gt_activity')))
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
+        _zero_launches()
+        ev = run.main(['eval', '--activity', '--dataset', 'kitti', '--dir_ann', 'annotations',
+                       '--model', model])
+        act = dict(launches)
+        net = ev.monoloco
+        acc = float(np.mean(np.asarray(ev.all_gt['all']) == np.asarray(ev.all_pred['all'])))
+        print(json.dumps({'phase': 28, 'vertical': 'activity', 'gt_files': n_gt,
+                          'matched': len(ev.all_gt['all']), 'accuracy': acc,
+                          'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
+                          'launches': {k: v for k, v in act.items() if v},
+                          'device': str(net.device), 'wall_s': time.perf_counter() - t0}),
+              flush=True)
+        check(net.device.type == 'cuda' and len(ev.all_gt['all']) > 0
+              and act['dyn8_mlp'] == net.n_dispatches_int8 > 0,
+              f"eval --activity: {net.n_dispatches_int8} int8 dispatches, launches {act}")
+        counts['dyn8_mlp'] = act['dyn8_mlp']
+
+        # --geometric and --variance on the prep joints (host numpy).
+        t0 = time.perf_counter()
+        errors = run.main(['eval', '--geometric', '--joints', joints['mono']])
+        check(np.isfinite(errors['all']) and errors['all'] >= 0, f"eval --geometric: {errors}")
+        with open(joints['stereo']) as f:
+            jo = json.load(f)
+        stem = os.path.join(root, 'variance_joints')
+        for method in ('pifpaf', 'mask'):
+            sub = {ph: {k: v[:2000] for k, v in jo[ph].items() if isinstance(v, list)}
+                   for ph in ('train', 'val')}
+            with open(f'{stem}_{method}.json', 'w') as f:
+                json.dump(sub, f)
+        dic_var = run.main(['eval', '--variance', '--joints', stem])
+        rep = dic_var['pifpaf']['rep']
+        print(json.dumps({'phase': 28, 'vertical': 'geometric and variance',
+                          'geometric_error': errors, 'variance_rep': rep,
+                          'wall_s': time.perf_counter() - t0}), flush=True)
+        check(set(dic_var) == {'pifpaf', 'mask'} and rep and all(
+            0 <= v <= 1 for v in rep.values()), f"eval --variance: {dic_var}")
+
+        # eval --generate --baselines (mono) under int8, with a legacy net.
+        params, bn = init_monoloco_params(SEED + 5, 34, 2, 256, 3)
+        os.makedirs(os.path.join('data', 'models'), exist_ok=True)
+        save_checkpoint(os.path.join('data', 'models', 'monoloco-190717-0952.pkl'), params, bn)
+        _zero_launches()
+        t0 = time.perf_counter()
+        gen, ev = run.main(['eval', '--generate', '--baselines', '--dir_ann', 'annotations',
+                            '--model', model])
+        base = dict(launches)
+        trees = {n: sorted(os.listdir(os.path.join('data', 'kitti', n)))
+                 for n in ('monoloco_pp', 'monoloco', 'geometric')}
+        print(json.dumps({'phase': 28, 'vertical': 'generate --baselines',
+                          'files': {n: len(v) for n, v in trees.items()},
+                          'methods_scored': ev.methods,
+                          'dispatches': gen.model.n_dispatches,
+                          'dispatches_int8': gen.model.n_dispatches_int8,
+                          'legacy_dispatches': gen.monoloco.n_dispatches,
+                          'launches': {k: v for k, v in base.items() if v},
+                          'wall_s': time.perf_counter() - t0}), flush=True)
+        check(trees['monoloco_pp'] and trees['monoloco_pp'] == trees['monoloco']
+              == trees['geometric'], "generate --baselines: the trees differ")
+        check(gen.monoloco.device.type == 'cuda'
+              and base['dyn8_mlp'] == gen.model.n_dispatches_int8 > 0,
+              f"generate --baselines: launches {base}")
+        check({'monoloco_pp', 'monoloco', 'geometric'} <= set(ev.methods),
+              f"generate --baselines: EvalKitti scored {ev.methods}")
+        counts['dyn8_mlp'] += base['dyn8_mlp']
+
+        # eval --save: the figures need matplotlib.
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        if has_mpl:
+            run.main(['eval', '--save'])
+            figs = sorted(os.listdir(os.path.join('figures', 'results')))
+            check(figs == ['results_monoloco_pp.png', 'spread_monoloco_pp.png',
+                           'task_error.png'], f"eval --save wrote {figs}")
+            print(f"eval --save: {figs}", flush=True)
+        else:
+            try:
+                run.main(['eval', '--save'])
+                fail("eval --save ran without matplotlib")
+            except SystemExit as exc:
+                check('matplotlib' in str(exc.code), f"eval --save: {exc.code}")
+                print(f"eval --save without matplotlib exits: {exc.code}", flush=True)
+    finally:
+        os.chdir(old)
+
+    # predict --webcam over WEBCAM_FRAMES frames, headless, json outputs.
+    work = os.path.join(root, 'webcam')
+    os.makedirs(work, exist_ok=True)
+    saved = {k: sys.modules.get(k) for k in ('cv2', 'openpifpaf')}
+    sys.modules['cv2'], sys.modules['openpifpaf'] = _webcam_stubs()
+    os.chdir(work)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        net, frames = run.main(['predict', '--webcam', '--model', model, '--output_types',
+                                'json', '--activities', 'social_distance', 'raise_hand'])
+        wall = time.perf_counter() - t0
+        cam = dict(launches)
+        outs = sorted(os.listdir('.'))
+        with open('out_webcam_1.monoloco.json') as f:
+            one = json.load(f)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        os.chdir(old)
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    print(json.dumps({'phase': 28, 'vertical': 'webcam', 'frames': frames, 'files': len(outs),
+                      'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
+                      'launches': {k: v for k, v in cam.items() if v}, 'device': str(net.device),
+                      'wall_s': wall, 'frames_per_s': frames / wall}), flush=True)
+    check(frames == WEBCAM_FRAMES and net.device.type == 'cuda'
+          and outs == [f'out_webcam_{i}.monoloco.json' for i in range(WEBCAM_FRAMES)],
+          f"webcam: {frames} frames, files {outs}")
+    check(len(one['dds_pred']) == 16 and all(np.isfinite(one['dds_pred']))
+          and cam['dyn8_mlp'] == net.n_dispatches_int8 > 0,
+          f"webcam: launches {cam}, {len(one['dds_pred'])} detections")
+    counts['dyn8_mlp'] += cam['dyn8_mlp']
+    return counts
 
 
 def _to_cuda(tree):
@@ -2119,6 +2665,19 @@ def make_kernels(folded, calib):
                             ops.pack_folded_weights_int8(folded, calib)),
         'w8_mlp': (ops.fused_loco_forward_w8, ops.w8_forward_plain, w8),
     }
+
+
+def run_training_and_verticals(tmp, prep_root, joints, main_launches):
+    """Phases 24-28, their launches added to `main_launches`."""
+    t0 = time.perf_counter()
+    model = phase_resume(tmp, joints['mono'])
+    phase_hyp(tmp, joints['mono'])
+    for mode in ('mono', 'stereo'):
+        for key, n in phase_full_volume(tmp, mode).items():
+            main_launches[key] = main_launches.get(key, 0) + n
+    for key, n in phase_verticals(prep_root, joints, model).items():
+        main_launches[key] = main_launches.get(key, 0) + n
+    print(f"phases 24-28: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():
@@ -2184,6 +2743,8 @@ def main():
     prep_root, joints = phase_prep(main_dir.name)
     phase_trained_eval(prep_root, phase_train(main_dir.name, joints))
     print(f"phases 21-23: {time.perf_counter() - t0:.1f} s", flush=True)
+    # The rest of training and the eval verticals (phases 24-28).
+    run_training_and_verticals(main_dir.name, prep_root, joints, main_launches)
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']

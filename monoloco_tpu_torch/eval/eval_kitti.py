@@ -10,8 +10,10 @@ matched recall, and the tabulated summary (`tabulate` when installed, else
 a plain fixed-width table, as in the JAX module). Each method's txt parsing
 and scoring happens in one `_score_method` pass per scene.
 
-`printer()` with `--save` or `--show` draws figures (`visuals/figures.py`),
-which are not ported yet (ROADMAP Queue 1 item 7): it raises.
+`printer()` with `--save` or `--show` draws the JAX package's figures
+(`visuals/figures.py`: `results_<net>.png`, `spread_<net>.png`, and
+`task_error.png` (mono) or `box_plot.png` (stereo) under `figures/results`);
+they need matplotlib.
 """
 
 import datetime
@@ -69,6 +71,7 @@ class EvalKitti:
 
     main_dir = os.path.join('data', 'kitti')
     dir_gt = os.path.join(main_dir, 'gt')
+    dir_fig = os.path.join('figures', 'results')
 
     def __init__(self, args, dir_splits='splits'):
         assert args.mode in ('mono', 'stereo'), "mode not recognized"
@@ -262,10 +265,21 @@ class EvalKitti:
             json.dump(plain(self.dic_stats), f)
 
     def printer(self):
+        if self.save:
+            os.makedirs(self.dir_fig, exist_ok=True)
         if self.save or self.show:
-            raise NotImplementedError(
-                "eval --save/--show figures (visuals/figures.py) are not ported yet: "
-                "ROADMAP Queue 1 item 7")
+            from ..visuals.figures import (show_box_plot, show_results, show_spread,
+                                           show_task_error)
+            print('-' * 100)
+            show_results(self.dic_stats, self.CLUSTERS, self.net, self.dir_fig,
+                         show=self.show, save=self.save)
+            show_spread(self.dic_stats, self.CLUSTERS, self.net, self.dir_fig,
+                        show=self.show, save=self.save)
+            if self.net == 'monstereo':
+                show_box_plot(self.errors, self.CLUSTERS, self.dir_fig,
+                              show=self.show, save=self.save)
+            else:
+                show_task_error(self.dir_fig, show=self.show, save=self.save)
 
     # ------------------------------------------------------------------
 

@@ -11,9 +11,14 @@ chunk's MLP is the dyn8 kernel (64 images x the detection bucket, or x m x r
 stereo pairings, is far above the engine's int8 floor), under bf16 the
 K1-bf16 kernel.
 
-The baselines (`--baselines`: the legacy MonoLoco, geometric, stereo pose
-and ReID) are not ported yet and are refused (ROADMAP Queue 1 items 7 and
-8); so is a device mesh (item 9).
+`--baselines` in mono mode also writes the `monoloco` tree (the legacy
+34 -> 2 net of `data/models/monoloco-190717-0952.pkl`, hidden 256, which
+runs no kernel, as in the JAX package) and the `geometric` tree
+(`geom_baseline.geometric_coordinates`) beside `monoloco_pp`. It takes the
+JAX package's per-image loop: one dispatch of each net an image (the main
+net's through dyn8 under int8 once an image pads to 16 rows). The stereo
+baselines (pose and ReID association) need the ReID net and are refused
+(ROADMAP Queue 1 item 8); so is a device mesh (item 9).
 """
 
 import math
@@ -26,8 +31,11 @@ from ..geometry.host import np_xyz_from_distance
 from ..network import Loco, preprocess_pifpaf
 from ..prep import factory_file
 from ..utils import factory_basename, make_new_directory, read_and_rewrite
+from .geom_baseline import geometric_coordinates
 
 CHUNK = 64
+STEREO_BASELINES_REFUSAL = ("eval --baselines in stereo mode needs the ReID net for its "
+                            "stereo baselines: ROADMAP Queue 1 item 8")
 
 
 class GenerateKitti:
@@ -35,13 +43,12 @@ class GenerateKitti:
     dir_gt = os.path.join('data', 'kitti', 'gt')
     dir_kk = os.path.join('data', 'kitti', 'calib')
     dir_byc = os.path.join('data', 'kitti', 'object_detection', 'left')
+    monoloco_checkpoint = os.path.join('data', 'models', 'monoloco-190717-0952.pkl')
 
     def __init__(self, args):
         assert args.mode in ('mono', 'stereo'), "mode not recognized"
-        if getattr(args, 'baselines', False):
-            raise NotImplementedError(
-                "GenerateKitti baselines (monoloco, geometric, pose, reid) are not ported "
-                "yet: ROADMAP Queue 1 items 7 and 8")
+        if getattr(args, 'baselines', False) and args.mode == 'stereo':
+            raise NotImplementedError(STEREO_BASELINES_REFUSAL)
         self.mode = args.mode
         self.net = 'monstereo' if args.mode == 'stereo' else 'monoloco_pp'
         device = 'cpu' if getattr(args, 'disable_cuda', False) else None
@@ -53,6 +60,12 @@ class GenerateKitti:
         self.generate_official = getattr(args, 'generate_official', False)
         assert os.listdir(self.dir_ann), "Annotation directory is empty"
         self.set_basename = factory_basename(args.dir_ann, self.dir_gt)
+        self.baselines = []
+        if getattr(args, 'baselines', False):
+            self.baselines = ['monoloco', 'geometric']
+            self.monoloco = Loco(model=self.monoloco_checkpoint, mode='mono', net='monoloco',
+                                 device=device, n_dropout=args.n_dropout,
+                                 p_dropout=args.dropout, linear_size=256)
 
     def run(self, chunk=CHUNK):
         """Load every validation image's annotations, forward them in sorted
@@ -60,6 +73,8 @@ class GenerateKitti:
         right pose choice per left pose is kept by basename in `aux_idx`."""
         dir_out = os.path.join('data', 'kitti', self.net)
         make_new_directory(dir_out)
+        if self.baselines:
+            return self._run_baselines(dir_out)
         stereo = self.net == 'monstereo'
         self.aux_idx = {}
         cnt_ann = cnt_file = cnt_no_file = 0
@@ -106,6 +121,39 @@ class GenerateKitti:
               f"Not found {cnt_no_file} images")
         if self.generate_official:
             create_empty_files({self.net: dir_out}, self.net)
+
+    def _run_baselines(self, dir_out):
+        """The JAX package's per-image loop of `--baselines` (mono): the main
+        net and the legacy MonoLoco one dispatch each an image, the
+        geometric depths on the host; one txt an image in each tree."""
+        dirs = {self.net: dir_out}
+        for name in self.baselines:
+            dirs[name] = os.path.join('data', 'kitti', name)
+            make_new_directory(dirs[name])
+        cnt_ann = cnt_file = cnt_no_file = 0
+        for basename in sorted(self.set_basename):
+            boxes, keypoints, kk, tt, cat, _ = self._load_image(basename, False)
+            if not keypoints:
+                cnt_no_file += 1
+                continue
+            dic_out = self.model.forward(keypoints, kk)
+            outputs = [dic_out['xyzd'], dic_out['bi'], dic_out['epi'], dic_out['yaw'],
+                       dic_out['h'], dic_out['w'], dic_out['l']]
+            params = [kk, tt]
+            save_txts(os.path.join(dir_out, basename + '.txt'), boxes, outputs, params,
+                      net=self.net, cat=cat)
+            cnt_ann += len(boxes)
+            cnt_file += 1
+            dic_mono = self.monoloco.forward(keypoints, kk)
+            zzs_geom, xy_centers = geometric_coordinates(keypoints, kk, average_y=0.48)
+            outputs = [dic_mono['d'], dic_mono['bi'], dic_mono['epi'], zzs_geom, xy_centers]
+            for key in self.baselines:
+                save_txts(os.path.join(dirs[key], basename + '.txt'), boxes, outputs, params,
+                          net=key, cat=cat)
+        print(f"\nSaved in {cnt_file} txt {cnt_ann} annotations. "
+              f"Not found {cnt_no_file} images")
+        if self.generate_official:
+            create_empty_files(dirs, self.net)
 
     def _load_image(self, basename, load_right):
         """Annotations, calibration and category flags of one image; the

@@ -9,8 +9,20 @@ Trainer checkpoints of the JAX package also pickle `opt_state`, whose classes
 live in optax (and may reference jax). A plain `pickle.load` would import
 both, and neither is installed beside the port on the GPU machine. The
 loader therefore unpickles through `_CheckpointUnpickler`, which maps every
-optax/jax global to an inert placeholder, and keeps only 'params',
-'bn_state' and 'meta'.
+optax/jax global to a placeholder that keeps its constructor arguments:
+`opt_state` comes back as `(ScaleByAdamState(count, mu, nu),)` placeholders
+whose `args` are those three, so `--resume` can take JAX's Adam moments.
+
+The training blob (`save_train_state` / `load_train_state`) holds the JAX
+keys ('params' and 'bn_state', the best-validation weights that serve;
+'final_params', 'final_bn_state', 'log_sigmas', 'meta') and, instead of
+optax's 'opt_state', the port's own resume state under 'torch_train_state'
+(Adam's step and moments as numpy in the order of the trainable tree, the
+update count, the trainer generator's state). The JAX loader reads the
+weights of such a blob and resumes it with fresh Adam moments.
+
+orbax directories (`.orbax`) are refused: `import orbax.checkpoint`
+imports jax, which the port does not use.
 """
 
 import importlib
@@ -24,26 +36,40 @@ from .loco import _stack
 FORMAT_TAG = 'monoloco_tpu-v1'
 
 _FOREIGN_ROOTS = ('optax', 'jax', 'jaxlib', 'chex', 'flax')
+# The weight trees of a training blob (numpy leaves whatever they came as).
+WEIGHT_KEYS = ('params', 'bn_state', 'final_params', 'final_bn_state')
+
+
+ORBAX_REFUSAL = ("orbax checkpoints are not ported: `import orbax.checkpoint` imports jax, "
+                 "which the port does not use (ROADMAP 'Not to port'; it was Queue 1 item 6); "
+                 "use a .pkl path")
 
 
 class _Inert:
-    """Stands in for an optax/jax object inside a pickled training state:
-    accepts any constructor or state and holds nothing."""
+    """Stands in for an optax/jax object inside a pickled training state.
+    It keeps what it was built from: the positional constructor arguments
+    in `args` (a namedtuple such as optax's `ScaleByAdamState` pickles its
+    fields so), keywords in `kwargs`, a pickled state in `state`; `module`
+    and `name` say which global it stands for."""
+
+    module = name = None
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        obj = object.__new__(cls)
+        obj.args, obj.kwargs, obj.state = args, kwargs, None
+        return obj
 
     def __init__(self, *args, **kwargs):
         pass
 
     def __setstate__(self, state):
-        pass
+        self.state = state
 
 
 class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split('.')[0] in _FOREIGN_ROOTS:
-            return _Inert
+            return type(name, (_Inert,), {'module': module, 'name': name})
         if module.startswith('numpy._core'):
             # Written by numpy 2; numpy 1 names the same module numpy.core.
             try:
@@ -78,28 +104,60 @@ def params_from_numpy(params, bn_state, device='cpu'):
 
 def save_checkpoint(path, params, bn_state, meta=None, extra=None):
     """Save (params, bn_state, meta) as the native pickle (numpy leaves, so
-    the JAX package loads it too); `extra` adds keys beside them (the
-    trainer's 'log_sigmas'). Orbax directories are not written here."""
+    the JAX package loads it too); `extra` adds keys beside them. Orbax
+    directories are refused."""
+    save_train_state(path, {'params': params, 'bn_state': bn_state, 'meta': meta or {},
+                            **(extra or {})})
+
+
+def _to_numpy_blob(value):
+    """Every tensor of a nested dict/list/tuple as numpy; other leaves (the
+    meta's strings and numbers, numpy arrays) as they are."""
+    if isinstance(value, dict):
+        return {k: _to_numpy_blob(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_numpy_blob(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return value
+
+
+def save_train_state(path, blob):
+    """Pickle a training blob ({'params', 'bn_state', 'meta', ...}), every
+    tensor as numpy, with the format tag: readable without torch, by the
+    JAX package too."""
     if str(path).endswith('.orbax'):
-        raise NotImplementedError(
-            "orbax checkpoints are not ported (ROADMAP Queue 1, training)")
-    blob = {
-        'format': FORMAT_TAG,
-        'params': _to_numpy(params),
-        'bn_state': _to_numpy(bn_state),
-        'meta': meta or {},
-        **(extra or {}),
-    }
+        raise NotImplementedError(ORBAX_REFUSAL)
+    out = {'format': FORMAT_TAG}
+    for key, value in blob.items():
+        if key in WEIGHT_KEYS:
+            out[key] = _to_numpy(value)
+        elif key != 'format':
+            out[key] = _to_numpy_blob(value)
+    out.setdefault('meta', {})
     with open(path, 'wb') as f:
-        pickle.dump(blob, f)
+        pickle.dump(out, f)
+
+
+def load_train_state(path):
+    """The whole training blob of a native pickle, the port's or the JAX
+    package's, as a dict of numpy trees (optax objects as `_Inert`
+    placeholders keeping their arguments). Raises ValueError for a file
+    that is not a native checkpoint."""
+    if str(path).endswith('.orbax'):
+        raise NotImplementedError(ORBAX_REFUSAL)
+    with open(path, 'rb') as f:
+        blob = _CheckpointUnpickler(f).load()
+    if not (isinstance(blob, dict) and blob.get('format') == FORMAT_TAG):
+        raise ValueError(f"{path} is not a {FORMAT_TAG} training checkpoint")
+    return blob
 
 
 def load_checkpoint(path, device='cpu'):
     """Load a native pickle or a reference torch state_dict.
     Returns (params, bn_state, meta) with f32 tensors on `device`."""
     if str(path).endswith('.orbax'):
-        raise NotImplementedError(
-            "orbax checkpoints are not ported (ROADMAP Queue 1, training)")
+        raise NotImplementedError(ORBAX_REFUSAL)
     try:
         with open(path, 'rb') as f:
             blob = _CheckpointUnpickler(f).load()

@@ -84,6 +84,36 @@ def init_loco_params(seed, input_size, output_size, linear_size=1024, num_stage=
     return params, state
 
 
+def init_monoloco_params(seed, input_size, output_size, linear_size=256, num_stage=3):
+    """Initialize the legacy MonoLoco net (34 -> 2 in the reference: a
+    Linear + BN + ReLU, the residual stages, one output Linear) from a
+    numpy seed, as `init_loco_params` does. Returns (params, bn_state) with
+    the JAX package's `init_monoloco_params` keys."""
+    rng = np.random.default_rng(seed)
+    h = linear_size
+
+    def bn():
+        return {'scale': torch.ones(h), 'bias': torch.zeros(h)}
+
+    def bn_state():
+        return {'mean': torch.zeros(h), 'var': torch.ones(h)}
+
+    params = {
+        'w1': _init_linear(rng, input_size, h),
+        'bn1': bn(),
+        'w2': _init_linear(rng, h, output_size),
+        'stages': _stack([
+            {'w1': _init_linear(rng, h, h), 'bn1': bn(),
+             'w2': _init_linear(rng, h, h), 'bn2': bn()}
+            for _ in range(num_stage)
+        ]),
+    }
+    state = {'bn1': bn_state(),
+             'stages': _stack([{'bn1': bn_state(), 'bn2': bn_state()}
+                               for _ in range(num_stage)])}
+    return params, state
+
+
 def _dense(p, x):
     return x @ p['w'] + p['b']
 
@@ -208,6 +238,98 @@ def loco_forward_train(params, bn_state, x, p_dropout=0.2, masks=None, row_mask=
                                      _dense_train(params['w3'], y2), row_mask))
     fin = _dense_train(params['w_fin'], y3)
     return torch.cat([fin, aux], dim=1), new_state
+
+
+def _stage_at(tree, i):
+    """Stage i of a trial-stacked tree, whose stage leaves are (T, S, ...)."""
+    return {k: _stage_at(v, i) if isinstance(v, dict) else v[:, i] for k, v in tree.items()}
+
+
+def _dense_stacked(p, x):
+    """x (T, m, in), or (m, in) shared by the trials, through each trial's
+    layer: W (T, in, out), b (T, out) -> (T, m, out), f32 as `_dense_train`."""
+    if x.dim() == 2:
+        x = x.expand(p['w'].shape[0], *x.shape)
+    y = torch.baddbmm(p['b'][:, None, :], x, p['w'])
+    return y if y.dtype == torch.float32 else y.float()
+
+
+def _batch_norm_train_stacked(p, state, x):
+    """Training-mode BatchNorm of each trial over its own rows: x (T, m, H),
+    p and `state` (T, H) (a fresh copy whose running stats are updated in
+    place). Each trial runs `_batch_norm_train` on its slice (one
+    `F.batch_norm` a trial, which takes one set of channels and has no
+    batched form with running stats), so its statistics, running-stat
+    update and rounding are those of a lone trial's step."""
+    return torch.stack([
+        _batch_norm_train({'scale': p['scale'][k], 'bias': p['bias'][k]},
+                          {'mean': state['mean'][k], 'var': state['var'][k]}, x[k], None)
+        for k in range(x.shape[0])])
+
+
+def _batch_norm_eval_stacked(p, state, x):
+    y = (x - state['mean'][:, None, :]) * torch.rsqrt(state['var'][:, None, :] + BN_EPS)
+    return y * p['scale'][:, None, :] + p['bias'][:, None, :]
+
+
+def loco_forward_train_stacked(params, bn_state, x, p_dropout=0.2, masks=None,
+                               generator=None):
+    """The training forward of T Loco models of one shape at once, each leaf
+    of `params` and `bn_state` with a leading trial axis (stage leaves (T,
+    S, ...)), on rows x (m, in) that every trial shares. Each product is one
+    `torch.baddbmm` over the trials; BatchNorm takes each trial's own batch
+    statistics (`_batch_norm_train_stacked`); the keep-masks (m, hidden) are
+    shared by the trials, drawn from `generator` as `loco_forward_train`
+    draws them when not given.
+    Returns (outputs (T, m, out) ordered [fin..., aux], new_bn_state)."""
+    new_state = _tree_clone(bn_state)
+    hidden = params['w1']['w'].shape[2]
+    n_stage = params['stages']['w1']['w'].shape[1]
+    if p_dropout > 0 and masks is None:
+        masks = train_keep_masks(x.shape[0], hidden, n_dropout_sites(n_stage), p_dropout,
+                                 generator, x.device)
+    sites = iter(masks if p_dropout > 0 else ())
+
+    def relu_drop(h):
+        h = torch.relu(h)
+        if p_dropout > 0:
+            h = torch.where(next(sites), h / (1.0 - p_dropout), 0.0)
+        return h
+
+    y = relu_drop(_batch_norm_train_stacked(params['bn1'], new_state['bn1'],
+                                            _dense_stacked(params['w1'], x)))
+    for i in range(n_stage):
+        sp, ss = _stage_at(params['stages'], i), _stage_at(new_state['stages'], i)
+        h = relu_drop(_batch_norm_train_stacked(sp['bn1'], ss['bn1'],
+                                                _dense_stacked(sp['w1'], y)))
+        h = relu_drop(_batch_norm_train_stacked(sp['bn2'], ss['bn2'],
+                                                _dense_stacked(sp['w2'], h)))
+        y = y + h
+    y2 = _dense_stacked(params['w2'], y)
+    aux = _dense_stacked(params['w_aux'], y2)
+    y3 = relu_drop(_batch_norm_train_stacked(params['bn3'], new_state['bn3'],
+                                             _dense_stacked(params['w3'], y2)))
+    fin = _dense_stacked(params['w_fin'], y3)
+    return torch.cat([fin, aux], dim=2), new_state
+
+
+def loco_forward_stacked(params, bn_state, x):
+    """Eval forward of T trial-stacked Loco models on shared rows x (m, in):
+    (T, m, out), each trial's BN from its running stats."""
+    y = torch.relu(_batch_norm_eval_stacked(params['bn1'], bn_state['bn1'],
+                                            _dense_stacked(params['w1'], x)))
+    for i in range(params['stages']['w1']['w'].shape[1]):
+        sp, ss = _stage_at(params['stages'], i), _stage_at(bn_state['stages'], i)
+        h = torch.relu(_batch_norm_eval_stacked(sp['bn1'], ss['bn1'],
+                                                _dense_stacked(sp['w1'], y)))
+        h = torch.relu(_batch_norm_eval_stacked(sp['bn2'], ss['bn2'],
+                                                _dense_stacked(sp['w2'], h)))
+        y = y + h
+    y2 = _dense_stacked(params['w2'], y)
+    aux = _dense_stacked(params['w_aux'], y2)
+    y3 = torch.relu(_batch_norm_eval_stacked(params['bn3'], bn_state['bn3'],
+                                             _dense_stacked(params['w3'], y2)))
+    return torch.cat([_dense_stacked(params['w_fin'], y3), aux], dim=2)
 
 
 def _fold(linear, bn, bn_state):

@@ -4,23 +4,28 @@ The flags of `monoloco_tpu.run`, so that a JAX command line runs on the
 port unchanged, plus `--disable-cuda` (without it predict, train and `eval
 --generate` need a CUDA card).
 
-predict: the pifpaf passthroughs (`--checkpoint`, `--long-edge`,
-`--white-overlay`, `--font-size`, `--monocolor-connections`,
-`--instance-threshold`, `--seed-threshold`, `--precise-rescaling`,
-`--decoder-workers`) and `--camera` are accepted and inert: the port reads
-precomputed pifpaf JSON and does not run OpenPifPaf. `--webcam` exits
-non-zero with a message.
+predict: the pifpaf passthroughs (`--long-edge`, `--white-overlay`,
+`--font-size`, `--monocolor-connections`, `--instance-threshold`,
+`--seed-threshold`, `--precise-rescaling`, `--decoder-workers`) are
+accepted and inert: the port reads precomputed pifpaf JSON. `--webcam`
+runs the live loop (`visuals/webcam.py`: cv2 capture from `--camera`,
+OpenPifPaf with `--checkpoint`, the net on the card); without cv2 or
+openpifpaf it exits naming the missing one.
 
 eval, from the root of a KITTI layout (`data/kitti/gt`, `data/kitti/calib`,
 `splits/`): `--generate` writes `data/kitti/monoloco_pp/*.txt`
-(`--mode stereo`: `data/kitti/monstereo/`) with GenerateKitti, then
+(`--mode stereo`: `data/kitti/monstereo/`) with GenerateKitti, with
+`--baselines` (mono) also the `monoloco` and `geometric` trees, then
 `--dataset kitti` (the default) scores every method folder present with
-EvalKitti, prints the summary table and writes `data/logs/eval-<stamp>.json`.
-Scoring alone is host code and needs no card. `--dataset nuscenes` runs the
-Trainer's `evaluate` on `--joints` with the checkpoint `--model` (on the
-card unless `--disable-cuda`). Not ported yet, and refused with a message
-naming the ROADMAP Queue 1 item: `--activity`, `--geometric`, `--variance`,
-`--baselines`, `--save`/`--show` (item 7) and `--dp_devices` > 1 (item 9).
+EvalKitti, prints the summary table and writes `data/logs/eval-<stamp>.json`;
+`--save`/`--show` draw its figures (matplotlib). Scoring alone is host code
+and needs no card. `--dataset nuscenes` runs the Trainer's `evaluate` on
+`--joints` with the checkpoint `--model` (on the card unless
+`--disable-cuda`). `--activity` (`--dataset kitti` or `collective`, with
+`--dir_ann` and `--model`) runs the ActivityEvaluator; `--geometric` and
+`--variance` study `--joints` on the host. Refused with a message naming
+the ROADMAP Queue 1 item: `--baselines` in stereo mode (item 8) and
+`--dp_devices` > 1 (item 9).
 
 prep (host code, no device): from the root of a KITTI layout,
 `prep --dir_ann annotations [--mode stereo]` writes
@@ -32,12 +37,18 @@ social-distance flag into `data/kitti/gt_activity` instead;
 the JAX CLI.
 
 train: the JAX flags plus `--disable-cuda`; it trains on the card unless
-`--disable-cuda` is given, and never falls back to the CPU. Refused, naming
-their ROADMAP Queue 1 item: `--hyp`, `--resume` and an `--out` ending in
-`.orbax` (item 6), `--dp_devices`/`--tp_devices` > 1 (item 9).
+`--disable-cuda` is given, and never falls back to the CPU. `--resume CKPT`
+continues a run (the port's checkpoints carry Adam's state, the update
+count and the generator; a JAX-written one its optax moments); `--hyp`
+runs HypTuning (`--multiplier`, `--r_seed`, `--monocular`;
+MONOLOCO_TPU_HYP_PARALLEL=1 trains each (bs, hidden, n_stage) group of
+trials as one stacked model). Refused: `.orbax` paths (orbax imports jax;
+ROADMAP "Not to port") and `--dp_devices`/`--tp_devices` > 1 (item 9).
 """
 
 import argparse
+import importlib.util
+import os
 
 
 def _camera_source(value):
@@ -58,7 +69,7 @@ def cli(argv=None):
     add = predict_parser.add_argument
     add('images', nargs='*', help='input images')
     add('--glob', help='glob expression for input images')
-    add('--checkpoint', help='pifpaf model (inert: OpenPifPaf is not run)')
+    add('--checkpoint', help='pifpaf model (used by --webcam only)')
     add('--json_dir', help='directory of precomputed pifpaf json files')
     add('-o', '--output-directory', dest='output_directory', help='Output directory')
     add('--output_types', nargs='+', default=[],
@@ -96,8 +107,8 @@ def cli(argv=None):
     add('--n_dropout', type=int, default=0, help='Epistemic uncertainty evaluation')
     add('--dropout', type=float, default=0.2, help='dropout parameter')
     add('--show_all', action='store_true', help='only predict ground-truth matches or all')
-    add('--webcam', help='webcam streaming (not ported)', action='store_true')
-    add('--camera', help='webcam device index, or a video file path (inert)',
+    add('--webcam', help='webcam streaming', action='store_true')
+    add('--camera', help='webcam device index, or a video file path',
         type=_camera_source, default=0)
     add('--profile', help='directory for a torch.profiler trace of the run')
     add('--calibration', type=str, default='custom',
@@ -132,7 +143,7 @@ def cli(argv=None):
     add('--sched_gamma', type=float, default=0.98, help='Scheduler multiplication every step')
     add('--hidden_size', type=int, default=1024, help='Number of hidden units in the model')
     add('--n_stage', type=int, default=3, help='Number of stages in the model')
-    add('--hyp', help='run hyperparameters tuning (not ported)', action='store_true')
+    add('--hyp', help='run hyperparameters tuning', action='store_true')
     add('--multiplier', type=int, default=1, help='Size of the grid of hyp search')
     add('--r_seed', type=int, default=1, help='specify the seed for training')
     add('--print_loss', help='print training and validation losses', action='store_true')
@@ -141,7 +152,7 @@ def cli(argv=None):
     add('--no_save', help='to not save model and log file', action='store_true')
     add('--dp_devices', type=int, default=1, help='data parallelism (not ported: 1 only)')
     add('--tp_devices', type=int, default=1, help='tensor parallelism (not ported: 1 only)')
-    add('--resume', help='checkpoint to resume training from (not ported)')
+    add('--resume', help='checkpoint to resume training from')
     add('--profile', help='directory for a torch.profiler trace of the training')
     add('--disable-cuda', dest='disable_cuda', action='store_true',
         help='train on the CPU; without it train needs a CUDA card')
@@ -149,8 +160,8 @@ def cli(argv=None):
     add = eval_parser.add_argument
     add('--mode', help='mono, stereo', default='mono')
     add('--dataset', default='kitti', help='datasets to evaluate, kitti or nuscenes')
-    add('--activity', help='evaluate activities (not ported)', action='store_true')
-    add('--geometric', help='to evaluate geometric distance (not ported)', action='store_true')
+    add('--activity', help='evaluate activities', action='store_true')
+    add('--geometric', help='to evaluate geometric distance', action='store_true')
     add('--generate', help='create txt files for KITTI evaluation', action='store_true')
     add('--dir_ann', help='directory of annotations of 2d joints')
     add('--model', help='path of MonoLoco model to load')
@@ -159,15 +170,16 @@ def cli(argv=None):
     add('--dropout', type=float, default=0.2, help='dropout')
     add('--hidden_size', type=int, default=1024, help='Number of hidden units in the model')
     add('--n_stage', type=int, default=3, help='Number of stages in the model')
-    add('--show', help='whether to show statistic graphs (not ported)', action='store_true')
-    add('--save', help='whether to save statistic graphs (not ported)', action='store_true')
+    add('--show', help='whether to show statistic graphs', action='store_true')
+    add('--save', help='whether to save statistic graphs', action='store_true')
     add('--verbose', help='verbosity of statistics', action='store_true')
     add('--new', help='new', action='store_true')
-    add('--variance', help='evaluate keypoints variance (not ported)', action='store_true')
+    add('--variance', help='evaluate keypoints variance', action='store_true')
     add('--net', help='Choose network: monoloco, monoloco_p, monoloco_pp, monstereo')
-    add('--baselines', help='whether to evaluate stereo baselines (not ported)',
-        action='store_true')
-    add('--reid_weights', default=None, help='ReID checkpoint for the baselines (not ported)')
+    add('--baselines', help='whether to evaluate the baselines (mono: monoloco and '
+        'geometric; stereo is not ported)', action='store_true')
+    add('--reid_weights', default=None,
+        help='ReID checkpoint for the stereo baselines (not ported)')
     add('--generate_official', action='store_true',
         help='whether to add empty txt files for official evaluation')
     add('--dp_devices', type=int, default=1,
@@ -178,32 +190,72 @@ def cli(argv=None):
 
 
 def _eval_refusal(args):
-    """The message for an eval option the port does not take yet, in the JAX
-    CLI's order of precedence; None when every option given is ported."""
-    if args.activity:
-        return "eval --activity needs eval/eval_activity.py: ROADMAP Queue 1 item 7"
-    if args.geometric:
-        return "eval --geometric needs eval/geom_baseline.py: ROADMAP Queue 1 item 7"
-    if args.variance:
-        return "eval --variance needs eval/eval_variance.py: ROADMAP Queue 1 item 7"
-    if args.baselines:
-        return ("eval --baselines needs the geometric, legacy MonoLoco, stereo pose and ReID "
-                "baselines: ROADMAP Queue 1 items 7 and 8")
-    if args.save or args.show:
-        return "eval --save/--show need visuals/figures.py: ROADMAP Queue 1 item 7"
+    """The message for an eval option the port does not take, or None."""
+    if args.activity or args.geometric or args.variance:
+        return None            # the JAX CLI runs these before anything else
+    if args.baselines and args.generate and args.mode == 'stereo':
+        from .eval.generate_kitti import STEREO_BASELINES_REFUSAL
+        return STEREO_BASELINES_REFUSAL
     if args.dp_devices > 1:
         return "eval --dp_devices > 1 needs device meshes: ROADMAP Queue 1 item 9"
     return None
 
 
+def _require(args, *names):
+    for name in names:
+        if not getattr(args, name):
+            raise SystemExit(f"eval: --{name} is required here")
+
+
+def eval_activity(args):
+    """`eval --activity`: the ActivityEvaluator on `--dataset collective`
+    or kitti; returns it."""
+    _require(args, 'dir_ann', 'model')
+    from .eval.eval_activity import ActivityEvaluator
+    evaluator = ActivityEvaluator(args)
+    if 'collective' in args.dataset:
+        evaluator.eval_collective()
+    else:
+        evaluator.eval_kitti()
+    return evaluator
+
+
+def eval_geometric(args):
+    """`eval --geometric`: the geometric baseline's statistics of
+    `--joints`; returns its error per distance cluster."""
+    _require(args, 'joints')
+    from .eval.geom_baseline import geometric_baseline
+    return geometric_baseline(args.joints)
+
+
+def eval_variance(args):
+    """`eval --variance`: the keypoint-disparity study of
+    `<joints>_pifpaf.json` and `<joints>_mask.json`; returns its
+    statistics."""
+    _require(args, 'joints')
+    from .eval.eval_variance import joints_variance
+    return joints_variance(args.joints, clusters=None, dic_ms=None)
+
+
 def evaluate(args):
-    """`eval`: GenerateKitti with --generate, then EvalKitti for --dataset
-    kitti; returns (the GenerateKitti or None, the EvalKitti)."""
+    """`eval`: --activity, --geometric or --variance when given (in that
+    order, as the JAX CLI); else GenerateKitti with --generate, then
+    EvalKitti for --dataset kitti. Returns the first one's result, or (the
+    GenerateKitti or None, the EvalKitti or, for nuScenes, the Trainer)."""
     refusal = _eval_refusal(args)
     if refusal:
         raise SystemExit(refusal)
+    if args.activity:
+        return eval_activity(args)
+    if args.geometric:
+        return eval_geometric(args)
+    if args.variance:
+        return eval_variance(args)
     if 'nuscenes' not in args.dataset and args.dataset != 'kitti':
         raise ValueError("Option not recognized")
+    if (args.save or args.show) and importlib.util.find_spec('matplotlib') is None:
+        raise SystemExit("eval --save/--show draw their figures with matplotlib, which is not "
+                         "installed here")
     gen = None
     if args.generate:
         from .eval import GenerateKitti
@@ -258,8 +310,17 @@ def prep(args):
 
 
 def train(args):
-    """`train`: Trainer.train, then evaluate (which saves the checkpoint);
-    returns the Trainer."""
+    """`train`: HypTuning under --hyp (returns its best trial's dict), else
+    Trainer.train, then evaluate (which saves the checkpoint; returns the
+    Trainer)."""
+    if not os.path.exists(args.joints):
+        raise SystemExit(f"train: --joints {args.joints}: no such file")
+    if args.hyp:
+        from .train import HypTuning
+        hyp_tuning = HypTuning(joints=args.joints, epochs=args.epochs,
+                               monocular=args.monocular, dropout=args.dropout,
+                               multiplier=args.multiplier, r_seed=args.r_seed)
+        return hyp_tuning.train(args)
     from .train import Trainer
     training = Trainer(args)
     training.train()
@@ -269,13 +330,17 @@ def train(args):
 
 def main(argv=None):
     """Parse argv (sys.argv when None) and run; returns predict's engine
-    (None under --mode keypoints), prep's preprocessor, train's Trainer, or
-    eval's (GenerateKitti or None, EvalKitti or, for nuScenes, the
-    Trainer)."""
+    (None under --mode keypoints; --webcam: the engine and the frame
+    count), prep's preprocessor, train's Trainer (--hyp: the best trial's
+    dict), or eval's result (`evaluate`)."""
     args = cli(argv)
     if args.command == 'predict':
         if args.webcam:
-            raise SystemExit("predict --webcam is not ported to the torch package yet")
+            from .visuals.webcam import webcam
+            try:
+                return webcam(args)
+            except ImportError as exc:
+                raise SystemExit(f"predict --webcam: {exc}") from None
         from .predict import predict
         return predict(args)
     if args.command == 'prep':

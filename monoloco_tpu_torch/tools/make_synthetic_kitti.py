@@ -28,6 +28,7 @@ Usage: python -m monoloco_tpu_torch.tools.make_synthetic_kitti ROOT
 """
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -60,6 +61,18 @@ GRAY = 90
 
 def write_png(path, rgb):
     """Write an (h, w, 3) uint8 array as an 8-bit RGB PNG (filter 0 rows)."""
+    with open(path, 'wb') as f:
+        f.write(encode_png(rgb))
+
+
+@functools.lru_cache(maxsize=1)
+def _flat_gray_png():
+    """The encoded flat gray image of every hard-mode scene, made once."""
+    return encode_png(np.full((IM_H, IM_W, 3), GRAY, np.uint8))
+
+
+def encode_png(rgb):
+    """The bytes of an (h, w, 3) uint8 array as an 8-bit RGB PNG."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     h, w = rgb.shape[:2]
     raw = np.zeros((h, 1 + 3 * w), np.uint8)
@@ -69,11 +82,10 @@ def write_png(path, rgb):
         return (struct.pack('>I', len(data)) + tag + data
                 + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
 
-    with open(path, 'wb') as f:
-        f.write(b'\x89PNG\r\n\x1a\n'
-                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
-                + chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
-                + chunk(b'IEND', b''))
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+            + chunk(b'IEND', b''))
 
 
 def _project(x, y, z):
@@ -179,8 +191,8 @@ def _write_files(root, name, gt_lines, anns_l, anns_r,
             os.makedirs(im_dir_r, exist_ok=True)
             write_png(os.path.join(im_dir_r, name + '.png'), right)
     elif images:
-        write_png(os.path.join(im_dir, name + '.png'),
-                  np.full((IM_H, IM_W, 3), GRAY, np.uint8))
+        with open(os.path.join(im_dir, name + '.png'), 'wb') as f:
+            f.write(_flat_gray_png())
     with open(os.path.join(ann_dir, name + '.png.predictions.json'), 'w') as f:
         json.dump(anns_l, f)
     with open(os.path.join(ann_dir_r, name + '.png.predictions.json'), 'w') as f:

@@ -10,3 +10,4 @@ from .losses import (
 )
 from .datasets import KeypointsDataset, ActivityDataset
 from .trainer import Trainer
+from .hyp_tuning import HypTuning

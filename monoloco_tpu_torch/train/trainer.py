@@ -16,8 +16,21 @@
   step's outputs, weighted by the rows of the batch; the weights kept are
   those of the epoch with the strictly lowest validation 'd' loss.
 - `evaluate()`: the whole validation set's and each distance cluster's
-  statistics, and the `monoloco_tpu-v1` pickle of the best weights (with
-  the meta and log-sigmas of the JAX package's save; no optimizer state).
+  statistics, and the `monoloco_tpu-v1` pickle: the best weights, which
+  serve, and the JAX keys of the resume state ('final_params',
+  'final_bn_state', 'log_sigmas', 'meta' with the epoch and the best
+  tracking), and under 'torch_train_state' the port's own: Adam's step and
+  moments (numpy, in the order of the trainable tree: the model's leaves,
+  then the log-sigmas), the update count and the generator's state. No
+  'opt_state': the JAX package would take it for optax's.
+- `--resume CKPT` continues from the final weights of CKPT, with the
+  port's Adam state, update count and generator (a resumed run equals a
+  straight one), or from a JAX-written blob's `opt_state` (optax's
+  `scale_by_adam` count, mu and nu are torch Adam's step, exp_avg and
+  exp_avg_sq), or, with neither, with fresh moments and a warning, as the
+  JAX package resumes a blob without `opt_state`. The epochs run from the
+  meta's `epoch` to `--epochs`; the best tracking starts from the
+  checkpoint's best weights and `best_val_acc`.
 
 One loop, epoch by epoch. The dataset, the shuffled order (`torch.randperm`
 on a generator on the device, seeded from `r_seed`; dropout's keep-masks
@@ -43,8 +56,9 @@ import numpy as np
 import torch
 
 from .. import __version__
-from ..models import (init_loco_params, load_checkpoint, loco_forward, loco_forward_train,
-                      params_from_numpy, save_checkpoint)
+from ..models import (init_loco_params, load_checkpoint, load_train_state, loco_forward,
+                      loco_forward_train, params_from_numpy, save_train_state)
+from ..models.checkpoint import ORBAX_REFUSAL
 from ..models.loco import _tree_clone as _clone
 from ..network.decode import extract_labels, extract_outputs
 from ..utils import set_logger
@@ -59,16 +73,9 @@ ADAM_EPS = 1e-8
 
 
 def refusal(args):
-    """The message for a training option the port does not take yet, or
-    None."""
-    if getattr(args, 'hyp', False):
-        return ("train --hyp (HypTuning) is not ported yet: ROADMAP Queue 1 item 6 "
-                "(the rest of training)")
-    if getattr(args, 'resume', None):
-        return ("train --resume needs the port's own optimizer state in its checkpoints: "
-                "ROADMAP Queue 1 item 6 (the rest of training)")
-    if str(getattr(args, 'out', None) or '').endswith('.orbax'):
-        return "orbax checkpoints are not ported: ROADMAP Queue 1 item 6 (the rest of training)"
+    """The message for a training option the port does not take, or None."""
+    if any(str(getattr(args, key, None) or '').endswith('.orbax') for key in ('out', 'resume')):
+        return ORBAX_REFUSAL
     if getattr(args, 'dp_devices', 1) > 1 or getattr(args, 'tp_devices', 1) > 1:
         return "train --dp_devices/--tp_devices > 1 need device meshes: ROADMAP Queue 1 item 9"
     return None
@@ -81,6 +88,25 @@ def _leaves(tree):
         v = tree[k]
         out.extend(_leaves(v) if isinstance(v, dict) else [v])
     return out
+
+
+def _jax_adam_state(opt_state):
+    """(count, mu leaves, nu leaves) of a JAX trainer's `opt_state`, the
+    one-element chain `(ScaleByAdamState(count, mu, nu),)` over
+    {'model': params, 'log_sigmas': ...}, unpickled into placeholders that
+    keep their arguments (`models/checkpoint.py`). The leaves follow the
+    port's trainable order: the model's in key order, then the log-sigmas."""
+    state = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+    fields = getattr(state, 'args', None) or tuple(state)
+    count, mu, nu = fields[:3]
+
+    def ordered(tree):
+        out = _leaves(tree['model'])
+        if tree.get('log_sigmas') is not None:
+            out.append(tree['log_sigmas'])
+        return [np.asarray(a, np.float32) for a in out]
+
+    return int(np.asarray(count)), ordered(mu), ordered(nu)
 
 
 def count_params(params):
@@ -117,6 +143,7 @@ class Trainer:
         self.r_seed = args.r_seed
         self.auto_tune_mtl = getattr(args, 'auto_tune_mtl', False)
         self.profile = getattr(args, 'profile', None)
+        self.resume = getattr(args, 'resume', None)
         if device is None:
             if getattr(args, 'disable_cuda', False):
                 device = 'cpu'
@@ -162,6 +189,9 @@ class Trainer:
         self.set_weights(params, bn_state)
         print(">>> model params: {:.3f}M".format(count_params(self.params) / 1e6))
         self.start_epoch = 0
+        self._resume_best = None
+        if self.resume:
+            self._resume_from(self.resume)
 
     # ------------------------------------------------------------------
 
@@ -174,7 +204,6 @@ class Trainer:
         self._model_leaves = _leaves(self.params)
         for t in self._model_leaves:
             t.requires_grad_(True)
-        trainable = list(self._model_leaves)
         self.log_sigmas = None
         if self.auto_tune_mtl:
             self.log_sigmas = (torch.zeros(len(self.tasks), device=self.device)
@@ -182,9 +211,90 @@ class Trainer:
                                torch.as_tensor(np.asarray(log_sigmas, np.float32),
                                                device=self.device).clone())
             self.log_sigmas.requires_grad_(True)
-            trainable.append(self.log_sigmas)
-        self.optimizer = torch.optim.Adam(trainable, lr=self.lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+        self.optimizer = torch.optim.Adam(self._trainable(), lr=self.lr, betas=ADAM_BETAS,
+                                          eps=ADAM_EPS)
         self.n_steps = 0
+
+    def _trainable(self):
+        """What Adam updates: the model's leaves, then the log-sigmas."""
+        return self._model_leaves + ([self.log_sigmas] if self.log_sigmas is not None else [])
+
+    def _resume_from(self, path):
+        """Continue from the final state of the checkpoint `path` (module
+        docstring: the port's resume state, a JAX blob's `opt_state`, or
+        fresh moments)."""
+        blob = load_train_state(path)
+        meta = blob.get('meta', {})
+        ckpt_auto = blob.get('log_sigmas') is not None
+        if ckpt_auto != self.auto_tune_mtl:
+            raise ValueError(
+                "--resume checkpoint was trained with auto_tune_mtl="
+                f"{ckpt_auto}; pass the matching --auto_tune_mtl setting")
+        self.set_weights(blob.get('final_params', blob['params']),
+                         blob.get('final_bn_state', blob['bn_state']), blob.get('log_sigmas'))
+        state = blob.get('torch_train_state')
+        if state is not None:
+            adam = state['adam']
+            self._load_adam(adam['step'], adam['exp_avg'], adam['exp_avg_sq'])
+            self.n_steps = int(state['n_steps'])
+            if state.get('generator_device') == self.device.type:
+                self.gen.set_state(torch.from_numpy(np.asarray(state['generator'], np.uint8)))
+            else:
+                self.logger.warning(
+                    "--resume: the generator's state was saved on %s and this run is on %s; "
+                    "the epoch order and keep-masks restart from r_seed",
+                    state.get('generator_device'), self.device.type)
+        elif 'opt_state' in blob:
+            adam = _jax_adam_state(blob['opt_state'])
+            self._load_adam(*adam)
+            self.n_steps = int(adam[0])
+        else:
+            self.logger.warning("--resume: %s holds no optimizer state; Adam starts with fresh "
+                                "moments", path)
+        self.start_epoch = int(meta.get('epoch', 0))
+        # The checkpoint's best-validation weights seed the best tracking, so
+        # a resumed segment that never beats them keeps them.
+        if meta.get('best_val_acc') is not None:
+            params, bn_state = params_from_numpy(blob['params'], blob['bn_state'], self.device)
+            self._resume_best = (float(meta['best_val_acc']),
+                                 float(meta.get('best_train_acc', 1e6)),
+                                 int(meta.get('best_epoch', self.start_epoch)), params, bn_state)
+        self.logger.info('Resumed from %s at epoch %d', path, self.start_epoch)
+
+    def _load_adam(self, step, exp_avg, exp_avg_sq):
+        """Set Adam's state of every trainable tensor: `step` a number, the
+        moments numpy arrays in `_trainable()` order."""
+        trainable = self._trainable()
+        if len(exp_avg) != len(trainable) or len(exp_avg_sq) != len(trainable):
+            raise ValueError(f"--resume: the checkpoint's Adam state has {len(exp_avg)} "
+                             f"tensors, this model {len(trainable)}")
+        for t, m, v in zip(trainable, exp_avg, exp_avg_sq):
+            m, v = np.asarray(m, np.float32), np.asarray(v, np.float32)
+            if m.shape != tuple(t.shape) or v.shape != tuple(t.shape):
+                raise ValueError(f"--resume: Adam moment of shape {m.shape} for a tensor of "
+                                 f"shape {tuple(t.shape)}")
+            self.optimizer.state[t] = {
+                'step': torch.tensor(float(step), dtype=torch.float32),
+                'exp_avg': torch.from_numpy(m.copy()).to(self.device),
+                'exp_avg_sq': torch.from_numpy(v.copy()).to(self.device)}
+
+    def train_state(self):
+        """The port's resume state (numpy): Adam's step and moments in
+        `_trainable()` order, the update count, the generator's state."""
+        exp_avg, exp_avg_sq, step = [], [], 0.0
+        for t in self._trainable():
+            st = self.optimizer.state.get(t, {})
+            if st:
+                step = float(st['step'])
+                exp_avg.append(st['exp_avg'].detach().cpu().numpy())
+                exp_avg_sq.append(st['exp_avg_sq'].detach().cpu().numpy())
+            else:
+                exp_avg.append(np.zeros(tuple(t.shape), np.float32))
+                exp_avg_sq.append(np.zeros(tuple(t.shape), np.float32))
+        return {'adam': {'step': step, 'exp_avg': exp_avg, 'exp_avg_sq': exp_avg_sq},
+                'n_steps': self.n_steps,
+                'generator': self.gen.get_state().cpu().numpy(),
+                'generator_device': self.device.type}
 
     def _precision(self, backward=False):
         """The arithmetic of a forward (or, with `backward`, of its backward
@@ -199,6 +309,12 @@ class Trainer:
     def _permutation(self, epoch):
         """The epoch's order of the training rows, on the device."""
         return torch.randperm(self.n_train, generator=self.gen, device=self.device)
+
+    def _step_masks(self, epoch, step, rows):
+        """The keep-masks of a step of `run_epoch`: None, so that the
+        training forward draws them from the trainer's generator (tests put
+        in the JAX package's)."""
+        return None
 
     def lr_at(self, step):
         """The staircase learning rate of update `step` (0-based)."""
@@ -269,10 +385,14 @@ class Trainer:
 
     def _train(self):
         since = time.time()
-        best_acc = 1e6
-        best_training_acc = 1e6
-        best_epoch = self.start_epoch
-        best_params, best_bn = _clone(self.params), _clone(self.bn_state)
+        if self._resume_best is not None:
+            best_acc, best_training_acc, best_epoch, best_params, best_bn = self._resume_best
+            best_params, best_bn = _clone(best_params), _clone(best_bn)
+        else:
+            best_acc = 1e6
+            best_training_acc = 1e6
+            best_epoch = self.start_epoch
+            best_params, best_bn = _clone(self.params), _clone(self.bn_state)
         epoch_losses = defaultdict(lambda: defaultdict(list))
         names = ['all'] + list(self.tasks)
         self.epoch_walls = []
@@ -319,9 +439,10 @@ class Trainer:
         rows, and the val losses, fetched in one copy."""
         perm = self._permutation(epoch)
         sums = torch.zeros(1 + len(self.tasks), device=self.device)
-        for start in range(0, self.n_train, self.bs):
+        for i, start in enumerate(range(0, self.n_train, self.bs)):
             idx = perm[start:start + self.bs]
-            _, _, logs = self.step(self.x_tr[idx], self.y_tr[idx])
+            _, _, logs = self.step(self.x_tr[idx], self.y_tr[idx],
+                                   self._step_masks(epoch, i, idx.shape[0]))
             sums += logs
         return torch.stack([sums / self.n_train, self.val_metrics()]).cpu().numpy()
 
@@ -438,8 +559,12 @@ class Trainer:
                     'version': __version__}
             log_sigmas = (self.log_sigmas.detach().cpu().numpy()
                           if self.log_sigmas is not None else None)
-            save_checkpoint(self.path_model, self.params, self.bn_state, meta=meta,
-                            extra={'log_sigmas': log_sigmas})
+            save_train_state(self.path_model, {
+                'params': self.params, 'bn_state': self.bn_state,
+                'final_params': getattr(self, 'final_params', self.params),
+                'final_bn_state': getattr(self, 'final_bn_state', self.bn_state),
+                'log_sigmas': log_sigmas, 'meta': meta,
+                'torch_train_state': self.train_state()})
             print('-' * 120)
             self.logger.info("\nmodel saved: {} \n".format(self.path_model))
         else:

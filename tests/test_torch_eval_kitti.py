@@ -209,6 +209,13 @@ def test_cli_generate_needs_a_card(root):
         run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model', MODEL])
 
 
+# The first six cases keep their ids from when the port refused them; they
+# run now (`_NOW_RUN`): --activity, --geometric and --variance dispatch before
+# --generate, as in the JAX CLI; --baselines (mono) writes the legacy and
+# geometric trees; --save and --show draw EvalKitti's figures.
+_NOW_RUN = ('--activity', '--geometric', '--variance', '--baselines', '--save', '--show')
+
+
 @pytest.mark.parametrize('extra,match', [
     (['--activity'], 'item 7'),
     (['--geometric'], 'item 7'),
@@ -219,11 +226,36 @@ def test_cli_generate_needs_a_card(root):
     (['--dataset', 'nuscenes', '--dp_devices', '2'], 'item 9'),
     (['--dp_devices', '2'], 'item 9'),
 ])
-def test_unported_eval_options_are_refused(root, capsys, extra, match):
-    """Refused before anything is generated or scored."""
+def test_unported_eval_options_are_refused(root, capsys, monkeypatch, extra, match):
+    """Meshes are refused before anything is generated or scored; the
+    options once refused run."""
+    argv = ['eval', '--generate', '--dir_ann', 'annotations', '--model', MODEL,
+            '--disable-cuda', *extra]
+    if extra[0] in _NOW_RUN:
+        name = extra[0][2:]
+        if name in ('activity', 'geometric', 'variance'):
+            monkeypatch.setattr(run, f'eval_{name}', lambda args: ('ran', name))
+            assert run.main(argv) == ('ran', name)
+            assert not os.path.exists(os.path.join(KITTI, 'monoloco_pp'))
+            return
+        if name == 'baselines':
+            from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint
+            os.makedirs(os.path.join('data', 'models'), exist_ok=True)
+            save_checkpoint(GenerateKitti.monoloco_checkpoint,
+                            *init_monoloco_params(0, 34, 2, 256, 3))
+        gen, ev = run.main(argv)
+        trees = ('monoloco_pp', 'monoloco', 'geometric') if name == 'baselines' else \
+            ('monoloco_pp',)
+        assert set(ev.methods) == set(trees)
+        for tree in trees:
+            assert len(os.listdir(os.path.join(KITTI, tree))) == N_VAL
+        made = sorted(os.listdir(os.path.join('figures', 'results'))) \
+            if os.path.isdir(os.path.join('figures', 'results')) else []
+        assert made == (['results_monoloco_pp.png', 'spread_monoloco_pp.png', 'task_error.png']
+                        if name == 'save' else [])
+        return
     with pytest.raises(SystemExit) as exc:
-        run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model', MODEL,
-                  '--disable-cuda', *extra])
+        run.main(argv)
     assert exc.value.code not in (0, None) and match in str(exc.value.code)
     assert not os.path.exists(os.path.join(KITTI, 'monoloco_pp'))
 
@@ -233,12 +265,21 @@ def test_unknown_dataset_is_an_error(root):
         run.main(['eval', '--dataset', 'coco'])
 
 
-def test_printer_refuses_figures(root, dataset):
+def test_printer_refuses_figures(root, dataset, monkeypatch):
+    """The printer draws the JAX package's figures with matplotlib, and
+    without it refuses with an ImportError naming it."""
     _add_method(dataset['trees']['jax', 'mono'], 'monoloco_pp')
     ev = EvalKitti(_args(save=True))
-    with pytest.raises(NotImplementedError, match='item 7'):
-        ev.printer()
+    ev.run()
     EvalKitti(_args()).printer()          # no figures asked: nothing to do
+    assert not os.path.exists(os.path.join('figures', 'results'))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, 'matplotlib', None)
+        with pytest.raises(ImportError, match='matplotlib'):
+            ev.printer()
+    ev.printer()
+    assert sorted(os.listdir(os.path.join('figures', 'results'))) == [
+        'results_monoloco_pp.png', 'spread_monoloco_pp.png', 'task_error.png']
 
 
 def test_eval_parity_tool_runs_each_precision(root):

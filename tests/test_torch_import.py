@@ -1,7 +1,8 @@
 """The torch port never imports jax (nor optax, which the JAX package's
-trainer checkpoints reference), and a json-only predict run and the KITTI
-eval path import neither matplotlib nor Pillow (the card's machine has no
-matplotlib and maybe no Pillow).
+trainer checkpoints reference, nor orbax), and a json-only predict run and
+the KITTI eval path import neither matplotlib nor Pillow (the card's machine
+has no matplotlib and maybe no Pillow); cv2 is imported only by the webcam
+loop, when it runs.
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
@@ -11,10 +12,14 @@ and int8, mono with MC dropout and both activities, f32 and bf16, and
 tool's rows and the latency and crossover tools once at a toy size, serves
 one request over HTTP, writes a synthetic KITTI root with images, runs `eval
 --generate` and the scoring, `prep` and `train` on it and the eval parity
-tool (whose legs are interpreters of their own), and then asserts that none of jax, jaxlib,
-optax, matplotlib and PIL is in sys.modules (nor tabulate or yaml after the
-imports: EvalKitti imports tabulate only to print its table, where there is
-one).
+tool (whose legs are interpreters of their own), `train --resume`,
+`train --hyp` (stacked), `prep --activity` and `eval --activity`, `eval
+--geometric`, `eval --variance` (as on a machine without matplotlib),
+`eval --generate --baselines` and a json-only `predict --webcam` on stub
+cv2 and openpifpaf, and then asserts that none of jax, jaxlib, optax,
+orbax, matplotlib and PIL is in sys.modules (nor tabulate, yaml or cv2
+after the imports: EvalKitti imports tabulate only to print its table,
+where there is one).
 """
 
 import os
@@ -35,7 +40,7 @@ _SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     # Optional at run time (EvalKitti's table), never loaded by an import.
-    assert not [m for m in sys.modules if m.split('.')[0] in ('tabulate', 'yaml')]
+    assert not [m for m in sys.modules if m.split('.')[0] in ('tabulate', 'yaml', 'cv2')]
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.network import engine
     here, model = sys.argv[1], sys.argv[2]
@@ -132,6 +137,73 @@ _SCRIPT = textwrap.dedent("""
                                 '--hidden_size', '16', '--n_stage', '1', '--out', 'm.pkl',
                                 '--disable-cuda'])
             assert os.path.exists('m.pkl') and trainer.best_epoch == 0
+            small = ['--hidden_size', '16', '--n_stage', '1', '--disable-cuda']
+            trainer = run.main(['train', '--joints', prep.path_joints, '--epochs', '2',
+                                '--out', 'r.pkl', '--resume', 'm.pkl', *small])
+            assert trainer.start_epoch == 1 and os.path.exists('r.pkl')
+            os.environ['MONOLOCO_TPU_HYP_PARALLEL'] = '1'
+            from monoloco_tpu_torch.train import hyp_tuning
+            real_init = hyp_tuning.HypTuning.__init__
+            def shrink(self, *a, **k):
+                real_init(self, *a, **k)
+                self.hidden_list = [16] * 6
+                self.bs_list = [64] * 6
+            hyp_tuning.HypTuning.__init__ = shrink
+            best = run.main(['train', '--joints', prep.path_joints, '--hyp', '--epochs', '1',
+                             '--monocular', *small])
+            hyp_tuning.HypTuning.__init__ = real_init
+            assert 'acc_val' in best
+            # The eval verticals.
+            run.main(['prep', '--dir_ann', 'annotations', '--activity'])
+            ev = run.main(['eval', '--activity', '--dir_ann', 'annotations', '--model', model,
+                           '--disable-cuda'])
+            assert ev.all_pred['all']
+            assert 'all' in run.main(['eval', '--geometric', '--joints', prep.path_joints])
+            shutil.copy(os.path.join(here, 'fixture_joints-kitti-stereo.json'), 'v_pifpaf.json')
+            sys.modules['matplotlib'] = None            # as where matplotlib is missing
+            assert list(run.main(['eval', '--variance', '--joints', 'v'])) == ['pifpaf']
+            del sys.modules['matplotlib']
+            from monoloco_tpu_torch.eval import GenerateKitti
+            from monoloco_tpu_torch.models import init_monoloco_params
+            save_checkpoint(GenerateKitti.monoloco_checkpoint,
+                            *init_monoloco_params(0, 34, 2, 256, 1))
+            gen, ev = run.main(['eval', '--generate', '--baselines', '--dir_ann', 'annotations',
+                                '--model', model, '--disable-cuda'])
+            assert {'monoloco', 'geometric', 'monoloco_pp'} <= set(ev.methods)
+            # predict --webcam, json only, on stub cv2 and openpifpaf.
+            import types
+            import numpy as np
+            cv2 = types.ModuleType('cv2')
+            frames = [np.zeros((48, 64, 3), np.uint8)] * 2
+            class Capture:
+                def __init__(self, *_):
+                    self.left = list(frames)
+                def isOpened(self):
+                    return True
+                def read(self):
+                    return (True, self.left.pop()) if self.left else (False, None)
+            cv2.VideoCapture, cv2.COLOR_BGR2RGB = Capture, 4
+            cv2.resize = lambda img, _n, fx=1.0, fy=1.0: img
+            cv2.cvtColor = lambda img, code: img
+            pifpaf = types.ModuleType('openpifpaf')
+            with open(os.path.join(here, 'fixture_002282.pifpaf.json')) as f:
+                fixture_anns = json.load(f)
+            class Ann:
+                def __init__(self, data):
+                    self.data = data
+                def json_data(self):
+                    return self.data
+            class Predictor:
+                def __init__(self, checkpoint=None):
+                    pass
+                def numpy_images(self, images):
+                    yield [Ann(a) for a in fixture_anns], None, None
+            pifpaf.Predictor = Predictor
+            sys.modules['cv2'], sys.modules['openpifpaf'] = cv2, pifpaf
+            net, n_frames = run.main(['predict', '--webcam', '--model', model,
+                                      '--output_types', 'json', '--disable-cuda'])
+            del sys.modules['cv2'], sys.modules['openpifpaf']
+            assert n_frames == 2 and os.path.exists('out_webcam_1.monoloco.json')
         finally:
             os.chdir(old)
         rec = eval_parity.main([tmp, '--model', model, '--disable-cuda'])
@@ -139,7 +211,8 @@ _SCRIPT = textwrap.dedent("""
         assert rec['txt_row_diff']['bf16']['rows'] > 0
     print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules
-                    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'matplotlib', 'PIL'))
+                    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'matplotlib',
+                                           'PIL', 'cv2'))
     print('MODULES', len(names), 'LEAKED', leaked)
     assert not leaked, leaked
 """)
@@ -172,11 +245,15 @@ def test_port_imports_and_runs_without_jax():
             'monoloco_tpu_torch.prep.preprocess_nu', 'monoloco_tpu_torch.utils.nuscenes',
             'monoloco_tpu_torch.utils.logs', 'monoloco_tpu_torch.train',
             'monoloco_tpu_torch.train.losses', 'monoloco_tpu_torch.train.datasets',
-            'monoloco_tpu_torch.train.trainer'} <= names
+            'monoloco_tpu_torch.train.trainer', 'monoloco_tpu_torch.train.hyp_tuning',
+            'monoloco_tpu_torch.eval.geom_baseline', 'monoloco_tpu_torch.eval.eval_variance',
+            'monoloco_tpu_torch.eval.stereo_baselines', 'monoloco_tpu_torch.eval.eval_activity',
+            'monoloco_tpu_torch.visuals.figures', 'monoloco_tpu_torch.visuals.plot_3d_box',
+            'monoloco_tpu_torch.visuals.webcam'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|optax|monoloco_tpu)(\.|\s|$)',
+    pattern = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|optax|orbax|monoloco_tpu)(\.|\s|$)',
                          re.M)
     offenders = []
     for root, _, files in os.walk(PORT):

@@ -102,6 +102,9 @@ def test_image_size_reads_headers_like_pillow(name):
     [],
 ])
 def test_unported_commands_exit_nonzero(argv):
+    """No command, or one whose input is missing (the joints file, --dir_ann),
+    exits non-zero with a message; `train --hyp`, `--resume` and `eval
+    --activity` themselves run."""
     with pytest.raises(SystemExit) as exc:
         run.main(argv)
     assert exc.value.code not in (0, None)

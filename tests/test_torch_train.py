@@ -468,12 +468,15 @@ def test_cli_prep_then_train_then_eval_nuscenes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--resume', 'x.pkl'], 'item 6'),
+    (['--resume', 'x.orbax'], 'item 6'),
     (['--out', 'x.orbax'], 'item 6'),
     (['--dp_devices', '2'], 'item 9'),
     (['--tp_devices', '2'], 'item 9'),
 ])
 def test_refused_train_options(extra, match, joints_dir):
+    """orbax paths (orbax imports jax; the message names the item it was
+    moved from) and meshes are refused; `--resume` of a pickle runs
+    (tests/test_torch_resume.py)."""
     with pytest.raises(SystemExit) as exc:
         run.main(['train', '--joints', str(joints_dir / 'mono.json'), '--disable-cuda']
                  + extra)
