@@ -186,8 +186,35 @@ to the CPU):
     else the exit naming it); `predict --webcam --output_types json` over
     8 frames on stub cv2 and openpifpaf, with `Loco` on the card under
     int8.
+ 29. ReID on the card: the ResNet-50 at 256x128 (weights from
+    `init_resnet50`, seed 1) on 64 crops of the fixture pair, decoded,
+    cropped and resized by the port's image module; the card's f32
+    features against the CPU's within 1e-4 of the largest (TF32 off), ms a
+    batch and crops/s (the net, and the forward with the host's resize);
+    then the tiny fixture net on the same crops within 1e-5.
+ 30. `eval --generate --baselines --mode stereo` through the entry point on
+    a synthetic tree of 64 scenes with identity-textured right images,
+    MonStereo at full width (phase 9's weights, theta and psi biased to
+    pi/2), the legacy MonoLoco net,
+    the tiny ReID through `--reid_weights`: float32, int8 (dyn8 on every
+    image's m x r pairings) and bf16 (K1-bf16), the five trees written;
+    the monstereo tree equals a float32 run without --baselines row for
+    row (one dispatch an image against 64-image chunks: files, rows, text
+    and boxes equal, positions within 1e-5 (1 + |x|), every column's largest
+    difference printed); int8
+    and bf16 within the dyn8 budget of float32 on the reid and monstereo
+    trees; the STEREO: correction percentages, dispatches, images/s.
+ 31. Meshes on the card, an NCCL world of torch.cuda.device_count() ranks
+    (one on a one-card machine: dp1; NCCL takes one rank a card, so the
+    equalities of several ranks are the CPU tests' over gloo): `run train
+    --dp_devices N` for 2 epochs (val losses against a run without a mesh,
+    bit equal on one card), `eval --generate --dp_devices N` mono and
+    stereo at float32 and int8 (txts byte-equal to the run without a
+    mesh), `serve --dp_devices N` (8 requests within 1e-5 (1 + |ref|) of
+    the meshless engine), `dryrun_multichip(N)` at flagship shapes; with
+    four cards or more also `run train` at dp2 x tp2.
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12, 13, 16, 17, 18, 20 and 26-28, each with every count set to 0
+8, 9, 11, 12, 13, 16, 17, 18, 20, 26-28, 30 and 31, each with every count set to 0
 just before it; phases 20, 26 and 27 from their legs' own processes); a
 count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
@@ -1836,7 +1863,7 @@ def phase_generate_chunk(root, model, kernels, folded):
                                      '--model', model]))
         loaded = []
         for basename in sorted(gen.set_basename):
-            _, keypoints, kk, _, _, _ = gen._load_image(basename, False)
+            _, keypoints, kk, *_ = gen._load_image(basename, False)
             if keypoints:
                 loaded.append((np.asarray(keypoints, np.float32), np.asarray(kk, np.float32)))
     finally:
@@ -2623,6 +2650,370 @@ def phase_verticals(root, joints, model):
     return counts
 
 
+REID_CROPS = 64            # phase 29: crops a batch, 32 from each fixture image
+REID_REPS = 10             # phase 29: timed batches
+REID_TOL = 1e-4            # phase 29: card vs CPU ResNet-50 features, of max |feature|
+TINY_REID_TOL = 1e-5       # phase 29: card vs CPU tiny features, max abs
+BASELINE_SCENES, BASELINE_SEED = 64, 30     # phase 30: val scenes of the stereo tree
+MESH_TREE_SCENES, MESH_SEED = 128, 31       # phase 31: val scenes of the generation tree
+MESH_TRAIN_EPOCHS = 2
+MESH_TRAIN_RTOL = 1e-5     # phase 31: val losses, a mesh against none (one card: bit equal)
+MESH_SERVE_REQUESTS = 8
+MESH_SERVE_TOL = 1e-5      # phase 31: (1 + |ref|)
+TINY_REID = os.path.join(REPO, 'tests', 'fixture_tiny_reid.pkl')
+
+
+def _reid_crops():
+    """REID_CROPS person-shaped crops (uint8) from the left and right
+    fixture images, decoded and cropped by the port's image module, from a
+    numpy seed."""
+    from monoloco_tpu_torch.utils.image import crop, read_png_rgb
+    rng = np.random.default_rng(SEED + 29)
+    crops = []
+    for name in ('fixture_000840.png', 'fixture_000840_right.png'):
+        image = read_png_rgb(os.path.join(REPO, 'tests', name))
+        for _ in range(REID_CROPS // 2):
+            w = rng.uniform(20, 160)
+            h = min(w * rng.uniform(1.8, 2.8), 370.0)
+            x0, y0 = rng.uniform(0, 1238 - w), rng.uniform(0, 374 - h)
+            crops.append(crop(image, (x0, y0, x0 + w, y0 + h)))
+    return crops
+
+
+def _cuda_ms(fn, reps):
+    """Median ms of fn() over reps, each between CUDA events, after one warm
+    call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_reid(smi):
+    """The ReID nets on the card against the CPU, timed."""
+    import warnings
+    from monoloco_tpu_torch.eval.reid_baseline import ReID
+    banner(f"== phase 29: ReID ResNet-50 at 256x128 ({REID_CROPS} crops of the fixture pair, "
+           f"weights from init_resnet50(seed 1)) and the tiny net, card vs CPU")
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    crops = _reid_crops()
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)     # random weights, on purpose
+        nets = {dev: ReID(weights_path=None, device=dev) for dev in ('cuda', 'cpu')}
+    t0 = time.perf_counter()
+    feats = {dev: net.forward(crops) for dev, net in nets.items()}
+    x = nets['cuda']._preprocess(crops)
+    with torch.inference_mode():
+        ms = _cuda_ms(lambda: nets['cuda'].net(x), REID_REPS)
+    t1 = time.perf_counter()
+    nets['cuda'].forward(crops)
+    forward_s = time.perf_counter() - t1
+    err = float(np.abs(feats['cuda'] - feats['cpu']).max())
+    scale = float(np.abs(feats['cpu']).max())
+    print(json.dumps({'phase': 29, 'net': 'resnet50', 'crops': REID_CROPS, 'hw': [256, 128],
+                      'features': list(feats['cuda'].shape), 'max_abs_err': err,
+                      'max_abs_feature': scale, 'net_ms_per_batch': ms,
+                      'net_crops_per_s': REID_CROPS / ms * 1e3,
+                      'forward_s_with_host_resize': forward_s,
+                      'crops_per_s_with_host_resize': REID_CROPS / forward_s,
+                      'wall_s': time.perf_counter() - t0, 'device': smi}), flush=True)
+    check(feats['cuda'].shape == (REID_CROPS, 2048) and np.isfinite(feats['cuda']).all(),
+          "ResNet-50 features: shape or finiteness")
+    check(err <= REID_TOL * scale, f"ResNet-50 card vs CPU: {err} > {REID_TOL} x {scale}")
+    tiny = {dev: ReID(weights_path=TINY_REID, device=dev) for dev in ('cuda', 'cpu')}
+    t_feats = {dev: net.forward(crops) for dev, net in tiny.items()}
+    x = tiny['cuda']._preprocess(crops)
+    with torch.inference_mode():
+        t_ms = _cuda_ms(lambda: tiny['cuda'].net(x), REID_REPS)
+    t_err = float(np.abs(t_feats['cuda'] - t_feats['cpu']).max())
+    print(json.dumps({'phase': 29, 'net': 'tiny', 'hw': [64, 32], 'max_abs_err': t_err,
+                      'net_ms_per_batch': t_ms, 'net_crops_per_s': REID_CROPS / t_ms * 1e3}),
+          flush=True)
+    check(t_err <= TINY_REID_TOL, f"tiny ReID card vs CPU: {t_err}")
+
+
+def _facing(params, bn_state):
+    """A copy of MonStereo weights whose output biases put theta = psi =
+    pi/2: with random weights z otherwise sits near 0, where the position
+    magnifies the last bit of the net's outputs (phase 9's weights have only
+    the distance at 15 m)."""
+    params = {k: dict(v) if k == 'w_fin' else v for k, v in params.items()}
+    params['w_fin']['b'] = params['w_fin']['b'].clone()
+    params['w_fin']['b'][0:2] += np.pi / 2
+    return params, bn_state
+
+
+def _stereo_tree(root, scenes, seed, images):
+    """An easy-mode synthetic KITTI tree (identity-textured left and right
+    images when `images`) at root, made the working directory."""
+    from monoloco_tpu_torch.tools.make_synthetic_kitti import make_dataset
+    make_dataset(root, n_train=2, n_val=scenes, seed=seed, images=images)
+    os.chdir(root)
+
+
+def _read_rows(tree):
+    rows = {}
+    for name in sorted(os.listdir(tree)):
+        with open(os.path.join(tree, name)) as f:
+            rows[name] = [line.split() for line in f]
+    return rows
+
+
+def _rows_close(a, b, tol):
+    """Same files and rows, the text and box columns equal, and the
+    position (x, y, z, columns 11-13) within tol (1 + |b|). Returns the
+    largest difference of each float column, of (1 + |b|): the angles'
+    columns magnify the last bit of a random net's outputs (atan2 near z = 0
+    of the raw orientation), so they are printed, not held."""
+    check(list(a) == list(b), "the trees hold other files")
+    worst = np.zeros(15)
+    for name in a:
+        check(len(a[name]) == len(b[name]), f"{name}: row counts differ")
+        for ra, rb in zip(a[name], b[name]):
+            check(ra[:3] == rb[:3] and ra[4:8] == rb[4:8], f"{name}: text or box columns differ")
+            fa, fb = np.array(ra[3:], float), np.array(rb[3:], float)
+            worst = np.maximum(worst, np.abs(fa - fb) / (1 + np.abs(fb)))
+    xyz = float(worst[11 - 3:14 - 3].max())
+    check(xyz <= tol, f"positions differ by {xyz} > {tol}")
+    return {col: float(worst[col - 3]) for col in range(3, 18)}
+
+
+def phase_stereo_baselines(tmp, s_params, s_bn):
+    """`eval --generate --baselines --mode stereo` through the entry point:
+    float32, int8 and bf16 runs (launches counted), and a float32 run
+    without --baselines. Returns the main-path launches."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.eval import GenerateKitti
+    from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint
+    from monoloco_tpu_torch.ops import launches
+    banner(f"== phase 30: eval --generate --baselines --mode stereo, {BASELINE_SCENES} scenes "
+           f"with right images, MonStereo at full width, the tiny ReID (--reid_weights)")
+    old = os.getcwd()
+    root = os.path.join(tmp, 'stereo_baselines')
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        _stereo_tree(root, BASELINE_SCENES, BASELINE_SEED, images=True)
+        os.makedirs(os.path.join('data', 'models'), exist_ok=True)
+        save_checkpoint(GenerateKitti.monoloco_checkpoint, *init_monoloco_params(0, 34, 2, 256, 3))
+        save_checkpoint('monstereo.pkl', *_facing(s_params, s_bn))
+        print(f"tree and checkpoints in {time.perf_counter() - t0:.1f} s", flush=True)
+        argv = ['eval', '--generate', '--mode', 'stereo', '--dir_ann', 'annotations', '--model',
+                'monstereo.pkl', '--hidden_size', str(HIDDEN), '--n_stage', str(STAGES)]
+        trees = {}
+        for precision, baselines in (('float32', False), ('float32', True), ('int8', True),
+                                     ('bf16', True)):
+            os.environ['MONOLOCO_TPU_PRECISION'] = precision
+            extra = ['--baselines', '--reid_weights', TINY_REID] if baselines else []
+            _zero_launches()
+            t1 = time.perf_counter()
+            gen, ev = run.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            ran = {k: n for k, n in launches.items() if n}
+            key = precision + ('_baselines' if baselines else '')
+            methods = ('monstereo', 'monoloco', 'geometric', 'pose', 'reid') if baselines \
+                else ('monstereo',)
+            trees[key] = {m: _read_rows(os.path.join('data', 'kitti', m)) for m in methods}
+            rec = {'phase': 30, 'precision': precision, 'baselines': baselines,
+                   'images': len(trees[key]['monstereo']), 'wall_s': wall,
+                   'images_per_s': len(trees[key]['monstereo']) / wall,
+                   'dispatches': gen.model.n_dispatches,
+                   'dispatches_int8': gen.model.n_dispatches_int8, 'launches': ran}
+            if baselines:
+                n_ann = sum(len(r) for r in trees[key]['monstereo'].values())
+                rec['stereo_corrected_pct'] = {k: gen.cnt_disparity[k] / max(n_ann, 1) * 100
+                                               for k in gen.stereo_baselines}
+                rec['no_stereo'] = gen.cnt_no_stereo
+                check(set(methods) <= set(ev.methods), f"EvalKitti scored {ev.methods}")
+                check(gen.reid_net.pretrained and gen.reid_net.device.type == 'cuda',
+                      "the ReID net is not the tiny one on the card")
+                counts = {k: counts.get(k, 0) + n for k, n in ran.items()}
+            print(json.dumps(rec), flush=True)
+            for m in methods:
+                check(len(trees[key][m]) == BASELINE_SCENES, f"{key}: {m} has "
+                                                             f"{len(trees[key][m])} files")
+            kernel = {'int8': 'dyn8_mlp', 'bf16': 'fused_mlp_bf16'}.get(precision)
+            check(ran.get(kernel, 0) > 0 if kernel else not ran,
+                  f"{key}: launches {ran}")
+        worst = _rows_close(trees['float32_baselines']['monstereo'],
+                            trees['float32']['monstereo'], 1e-5)
+        print(f"monstereo with --baselines (one dispatch an image) against without (64-image "
+              f"chunks), float32: largest difference of (1 + |x|) by column {worst}")
+
+        def mean_rel(tree, ref):
+            d = np.concatenate([[np.linalg.norm(np.array(r[11:14], float)) for r in tree[n]]
+                                for n in tree])
+            d_ref = np.concatenate([[np.linalg.norm(np.array(r[11:14], float)) for r in ref[n]]
+                                    for n in ref])
+            return float(np.abs(d - d_ref).mean() / np.abs(d_ref).mean())
+
+        for precision in ('int8', 'bf16'):
+            for m in ('reid', 'monstereo'):
+                rel = mean_rel(trees[f'{precision}_baselines'][m],
+                               trees['float32_baselines'][m])
+                print(f"{precision} against float32, {m} tree: distance mean relative "
+                      f"{rel:.3e} (budget {DYN8_BUDGET})")
+                check(rel < DYN8_BUDGET, f"{precision} {m} tree outside the budget")
+    finally:
+        os.chdir(old)
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    return counts
+
+
+def _serve_mesh(model, n, requests):
+    """`python -m monoloco_tpu_torch.serve --dp_devices n` on `model`: the
+    responses to `requests` (keypoints lists), in order."""
+    import re
+    import signal
+    import threading
+    import urllib.request
+    proc = subprocess.Popen([sys.executable, '-m', 'monoloco_tpu_torch.serve', '--model', model,
+                             '--port', '0', '--dp_devices', str(n)], cwd=REPO,
+                            env=dict(os.environ, MONOLOCO_TPU_PRECISION='float32'),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, serving = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith('serving '):
+                serving.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not serving.wait(180):
+            fail(f"serve --dp_devices {n} printed no 'serving' line: {lines[-20:]}")
+        print(lines[-1], flush=True)
+        port = int(re.search(r'http://[^:]+:(\d+)', lines[-1]).group(1))
+        kk = [[718.0, 0.0, 600.0], [0.0, 718.0, 180.0], [0.0, 0.0, 1.0]]
+        out = []
+        for kps in requests:
+            req = urllib.request.Request(f'http://127.0.0.1:{port}/v1/predict',
+                                         data=json.dumps({'keypoints': kps, 'kk': kk}).encode())
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out.append(json.loads(resp.read())['outputs'])
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(30)
+        check(code == 0, f"serve --dp_devices {n} exited {code}: {lines[-20:]}")
+        return out, kk
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+
+
+def _val_logs(trainer):
+    """(epochs, 1 + tasks) val losses of each epoch: what every rank of a
+    mesh computed, kept by rank 0's Trainer after the group is gone."""
+    names = ['all'] + list(trainer.tasks)
+    return np.array([trainer.epoch_losses['val'][k] for k in names]).T
+
+
+def phase_meshes(tmp, joints, model, s_params, s_bn):
+    """Every mesh entry point over an NCCL world of torch.cuda.device_count()
+    ranks against the run without a mesh. Returns the main-path launches."""
+    from monoloco_tpu_torch import run
+    from monoloco_tpu_torch.models import save_checkpoint
+    from monoloco_tpu_torch.network import Loco
+    from monoloco_tpu_torch.ops import launches
+    from monoloco_tpu_torch.parallel.dryrun import dryrun_multichip
+    n = torch.cuda.device_count()
+    banner(f"== phase 31: device meshes over NCCL, dp{n} (torch.cuda.device_count() = {n})")
+    print(f"NCCL takes one rank a card, so this machine's mesh is dp{n}; the equalities of "
+          f"several ranks (dp2, dp2 x tp2) are held on the CPU over gloo by "
+          f"tests/test_torch_parallel.py", flush=True)
+    os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    counts = {}
+    t0 = time.perf_counter()
+    runs = {}
+    for key, extra in (('none', []), ('mesh', ['--dp_devices', str(n)])):
+        t1 = time.perf_counter()
+        trainer = run.main(_train_args(joints['mono'], 'mono', (
+            '--epochs', str(MESH_TRAIN_EPOCHS), '--no_save', *extra)))
+        runs[key] = (_val_logs(trainer), time.perf_counter() - t1, trainer)
+    val, val_ref = runs['mesh'][0], runs['none'][0]
+    rel = float(np.max(np.abs(val - val_ref) / np.abs(val_ref)))
+    print(json.dumps({'phase': 31, 'path': 'run train', 'dp': n, 'epochs': MESH_TRAIN_EPOCHS,
+                      'val_max_rel_vs_no_mesh': rel, 'wall_s_mesh': runs['mesh'][1],
+                      'wall_s_no_mesh': runs['none'][1]}), flush=True)
+    check(runs['mesh'][2].device.type == 'cuda', "the mesh trained off the card")
+    check(rel <= (MESH_TRAIN_RTOL if n == 1 else 2e-3), f"train on the mesh: val {rel}")
+    old = os.getcwd()
+    try:
+        _stereo_tree(os.path.join(tmp, 'mesh_tree'), MESH_TREE_SCENES, MESH_SEED, images=False)
+        save_checkpoint('monstereo.pkl', *_facing(s_params, s_bn))
+        for mode, ckpt in (('mono', model), ('stereo', 'monstereo.pkl')):
+            for precision in ('float32', 'int8'):
+                os.environ['MONOLOCO_TPU_PRECISION'] = precision
+                trees = {}
+                for key, extra in (('none', []), ('mesh', ['--dp_devices', str(n)])):
+                    _zero_launches()
+                    t1 = time.perf_counter()
+                    gen, _ = run.main(['eval', '--generate', '--mode', mode, '--dir_ann',
+                                       'annotations', '--model', ckpt, *extra])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+                    ran = {k: c for k, c in launches.items() if c}
+                    if key == 'mesh':
+                        counts = {k: counts.get(k, 0) + c for k, c in ran.items()}
+                        check(gen.model.mesh is not None and gen.model.mesh.dp == n,
+                              "generation ran without the mesh")
+                    tree = os.path.join('data', 'kitti', gen.net)
+                    trees[key] = {f: open(os.path.join(tree, f), 'rb').read()
+                                  for f in sorted(os.listdir(tree))}
+                    print(json.dumps({'phase': 31, 'path': 'eval --generate', 'mode': mode,
+                                      'precision': precision, 'mesh': key, 'wall_s': wall,
+                                      'images_per_s': len(trees[key]) / wall,
+                                      'dispatches': gen.model.n_dispatches,
+                                      'dispatches_int8': gen.model.n_dispatches_int8,
+                                      'launches': ran}), flush=True)
+                check(trees['mesh'] == trees['none'] and len(trees['none']) == MESH_TREE_SCENES,
+                      f"{mode} {precision}: the mesh's txts differ from the run without one")
+                print(f"{mode} {precision}: {len(trees['none'])} txts byte-equal", flush=True)
+    finally:
+        os.chdir(old)
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+    rng = np.random.default_rng(SEED + 31)
+    requests = [(rng.random((m, 3, 17)) * 300).tolist() for m in (1, 3, 5, 8, 13, 16, 2, 7)]
+    t1 = time.perf_counter()
+    responses, kk = _serve_mesh(model, n, requests[:MESH_SERVE_REQUESTS])
+    single = Loco(model=model, device='cuda')
+    worst = 0.0
+    for kps, out in zip(requests, responses):
+        ref = single.forward_batch([np.asarray(kps, np.float32)], [kk])[0]
+        for key in ('xyzd', 'bi', 'h', 'w', 'l'):
+            got, want = np.asarray(out[key], np.float64), np.asarray(ref[key], np.float64)
+            worst = max(worst, float((np.abs(got - want) / (1 + np.abs(want))).max()))
+    print(json.dumps({'phase': 31, 'path': 'serve', 'dp': n, 'requests': len(responses),
+                      'max_rel_vs_no_mesh': worst,
+                      'wall_s': time.perf_counter() - t1}), flush=True)
+    check(worst <= MESH_SERVE_TOL, f"serve --dp_devices {n}: {worst}")
+    line = dryrun_multichip(n)
+    check(f'dp{n}' in line and 'train step ok (hidden 1024, 3 stages' in line,
+          f"dryrun_multichip({n}): {line}")
+    if n >= 4:
+        os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
+        trainer = run.main(_train_args(joints['mono'], 'mono', (
+            '--epochs', str(MESH_TRAIN_EPOCHS), '--no_save', '--dp_devices', '2',
+            '--tp_devices', '2')))
+        rel = float(np.max(np.abs(_val_logs(trainer) - val_ref) / np.abs(val_ref)))
+        print(json.dumps({'phase': 31, 'path': 'run train dp2xtp2', 'val_max_rel_vs_no_mesh':
+                          rel}), flush=True)
+        check(rel <= 2e-3, f"train dp2 x tp2: val {rel}")
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
 
@@ -2745,6 +3136,14 @@ def main():
     print(f"phases 21-23: {time.perf_counter() - t0:.1f} s", flush=True)
     # The rest of training and the eval verticals (phases 24-28).
     run_training_and_verticals(main_dir.name, prep_root, joints, main_launches)
+    # The ReID net, the stereo baselines and the meshes (phases 29-31).
+    t0 = time.perf_counter()
+    phase_reid(smi)
+    for counts in (phase_stereo_baselines(main_dir.name, m_params, m_bn),
+                   phase_meshes(main_dir.name, joints, model, m_params, m_bn)):
+        for key, n in counts.items():
+            main_launches[key] = main_launches.get(key, 0) + n
+    print(f"phases 29-31: {time.perf_counter() - t0:.1f} s", flush=True)
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']

@@ -11,31 +11,40 @@ chunk's MLP is the dyn8 kernel (64 images x the detection bucket, or x m x r
 stereo pairings, is far above the engine's int8 floor), under bf16 the
 K1-bf16 kernel.
 
-`--baselines` in mono mode also writes the `monoloco` tree (the legacy
-34 -> 2 net of `data/models/monoloco-190717-0952.pkl`, hidden 256, which
-runs no kernel, as in the JAX package) and the `geometric` tree
-(`geom_baseline.geometric_coordinates`) beside `monoloco_pp`. It takes the
-JAX package's per-image loop: one dispatch of each net an image (the main
-net's through dyn8 under int8 once an image pads to 16 rows). The stereo
-baselines (pose and ReID association) need the ReID net and are refused
-(ROADMAP Queue 1 item 8); so is a device mesh (item 9).
+`--baselines` also writes the `monoloco` tree (the legacy 34 -> 2 net of
+`data/models/monoloco-190717-0952.pkl`, hidden 256, which runs no kernel,
+as in the JAX package) and the `geometric` tree
+(`geom_baseline.geometric_coordinates`) beside the main net's; in stereo
+mode also the `pose` and `reid` trees: the main net's depths corrected by
+the disparity of the left-right association of `stereo_baselines` by pose
+distance and by ReID features (`reid_baseline.ReID` on the crops of
+`data/kitti/images` and `images_r`, the Loco's device; weights from
+`--reid_weights`, else `data/models/reid_model_market.pkl` when present,
+else random with a warning). It takes the JAX package's per-image loop:
+one dispatch of each net an image (the main net's through dyn8 under int8
+once an image pads to 16 rows, for MonStereo its m x r pairings).
+
+Under a mesh (`args.mesh`, `parallel.Mesh`) every rank loads the same
+sorted chunks and runs its share of each dispatch (`network/engine.py`);
+rank 0 alone writes the txts, which equal a single device's byte for byte.
+The baselines' per-image loop runs on rank 0 alone.
 """
 
 import math
 import os
+from collections import defaultdict
 
 import numpy as np
 
 from ..geometry import get_category
-from ..geometry.host import np_xyz_from_distance
+from ..geometry.host import np_get_keypoints, np_pixel_to_camera, np_xyz_from_distance
 from ..network import Loco, preprocess_pifpaf
 from ..prep import factory_file
 from ..utils import factory_basename, make_new_directory, read_and_rewrite
 from .geom_baseline import geometric_coordinates
+from .stereo_baselines import baselines_association
 
 CHUNK = 64
-STEREO_BASELINES_REFUSAL = ("eval --baselines in stereo mode needs the ReID net for its "
-                            "stereo baselines: ROADMAP Queue 1 item 8")
 
 
 class GenerateKitti:
@@ -44,37 +53,53 @@ class GenerateKitti:
     dir_kk = os.path.join('data', 'kitti', 'calib')
     dir_byc = os.path.join('data', 'kitti', 'object_detection', 'left')
     monoloco_checkpoint = os.path.join('data', 'models', 'monoloco-190717-0952.pkl')
+    reid_checkpoint = os.path.join('data', 'models', 'reid_model_market.pkl')
+    dir_images = os.path.join('data', 'kitti', 'images')
+    dir_images_r = os.path.join('data', 'kitti', 'images_r')
 
     def __init__(self, args):
         assert args.mode in ('mono', 'stereo'), "mode not recognized"
-        if getattr(args, 'baselines', False) and args.mode == 'stereo':
-            raise NotImplementedError(STEREO_BASELINES_REFUSAL)
         self.mode = args.mode
         self.net = 'monstereo' if args.mode == 'stereo' else 'monoloco_pp'
         device = 'cpu' if getattr(args, 'disable_cuda', False) else None
+        mesh = getattr(args, 'mesh', None)
+        self.writes = mesh is None or mesh.is_main
         self.model = Loco(model=args.model, mode=args.mode, device=device,
                           n_dropout=args.n_dropout, p_dropout=args.dropout,
-                          linear_size=args.hidden_size, n_stage=args.n_stage,
-                          mesh=getattr(args, 'mesh', None))
+                          linear_size=args.hidden_size, n_stage=args.n_stage, mesh=mesh)
         self.dir_ann = args.dir_ann
         self.generate_official = getattr(args, 'generate_official', False)
         assert os.listdir(self.dir_ann), "Annotation directory is empty"
         self.set_basename = factory_basename(args.dir_ann, self.dir_gt)
         self.baselines = []
+        self.stereo_baselines = []
         if getattr(args, 'baselines', False):
             self.baselines = ['monoloco', 'geometric']
             self.monoloco = Loco(model=self.monoloco_checkpoint, mode='mono', net='monoloco',
-                                 device=device, n_dropout=args.n_dropout,
+                                 device=self.model.device, n_dropout=args.n_dropout,
                                  p_dropout=args.dropout, linear_size=256)
+            if args.mode == 'stereo':
+                from .reid_baseline import ReID
+                self.stereo_baselines = ['pose', 'reid']
+                self.cnt_disparity = defaultdict(int)
+                self.cnt_no_stereo = 0
+                weights = getattr(args, 'reid_weights', None)
+                if weights is None and os.path.exists(self.reid_checkpoint):
+                    weights = self.reid_checkpoint
+                self.reid_net = ReID(weights_path=weights, device=self.model.device,
+                                     num_classes=751, height=256, width=128)
 
     def run(self, chunk=CHUNK):
         """Load every validation image's annotations, forward them in sorted
         chunks, and write one txt per image with detections. The stereo net's
         right pose choice per left pose is kept by basename in `aux_idx`."""
         dir_out = os.path.join('data', 'kitti', self.net)
-        make_new_directory(dir_out)
         if self.baselines:
-            return self._run_baselines(dir_out)
+            if self.writes:
+                self._run_baselines(dir_out)
+            return
+        if self.writes:
+            make_new_directory(dir_out)
         stereo = self.net == 'monstereo'
         self.aux_idx = {}
         cnt_ann = cnt_file = cnt_no_file = 0
@@ -83,7 +108,7 @@ class GenerateKitti:
         # MC-dropout bucket shape (and hence the epi draws) depends on which
         # images share a chunk, and set iteration order is hash-randomized.
         for basename in sorted(self.set_basename):
-            boxes, keypoints, kk, tt, cat, keypoints_r = self._load_image(basename, stereo)
+            boxes, keypoints, kk, tt, cat, keypoints_r, _ = self._load_image(basename, stereo)
             if not keypoints:
                 cnt_no_file += 1
                 continue
@@ -101,8 +126,9 @@ class GenerateKitti:
             for (basename, boxes, kk, tt, cat, _, _), dic_out in zip(batch, fin()):
                 all_outputs = [dic_out['xyzd'], dic_out['bi'], dic_out['epi'],
                                dic_out['yaw'], dic_out['h'], dic_out['w'], dic_out['l']]
-                save_txts(os.path.join(dir_out, basename + '.txt'), boxes, all_outputs,
-                          [kk, tt], net=self.net, cat=cat)
+                if self.writes:
+                    save_txts(os.path.join(dir_out, basename + '.txt'), boxes, all_outputs,
+                              [kk, tt], net=self.net, cat=cat)
                 if stereo:
                     self.aux_idx[basename] = dic_out['aux_idx']
                 cnt_ann += len(boxes)
@@ -119,24 +145,28 @@ class GenerateKitti:
 
         print(f"\nSaved in {cnt_file} txt {cnt_ann} annotations. "
               f"Not found {cnt_no_file} images")
-        if self.generate_official:
+        if self.generate_official and self.writes:
             create_empty_files({self.net: dir_out}, self.net)
 
     def _run_baselines(self, dir_out):
-        """The JAX package's per-image loop of `--baselines` (mono): the main
-        net and the legacy MonoLoco one dispatch each an image, the
-        geometric depths on the host; one txt an image in each tree."""
+        """The JAX package's per-image loop of `--baselines`: the main net and
+        the legacy MonoLoco one dispatch each an image, the geometric depths
+        on the host, and in stereo mode the pose and ReID associations; one
+        txt an image in each tree."""
+        stereo = self.net == 'monstereo'
         dirs = {self.net: dir_out}
-        for name in self.baselines:
+        for name in [self.net] + self.baselines + self.stereo_baselines:
             dirs[name] = os.path.join('data', 'kitti', name)
             make_new_directory(dirs[name])
         cnt_ann = cnt_file = cnt_no_file = 0
         for basename in sorted(self.set_basename):
-            boxes, keypoints, kk, tt, cat, _ = self._load_image(basename, False)
+            boxes, keypoints, kk, tt, cat, keypoints_r, boxes_r = self._load_image(basename,
+                                                                                   stereo)
             if not keypoints:
                 cnt_no_file += 1
                 continue
-            dic_out = self.model.forward(keypoints, kk)
+            dic_out = (self.model.forward(keypoints, kk, keypoints_r=keypoints_r) if stereo
+                       else self.model.forward(keypoints, kk))
             outputs = [dic_out['xyzd'], dic_out['bi'], dic_out['epi'], dic_out['yaw'],
                        dic_out['h'], dic_out['w'], dic_out['l']]
             params = [kk, tt]
@@ -150,24 +180,68 @@ class GenerateKitti:
             for key in self.baselines:
                 save_txts(os.path.join(dirs[key], basename + '.txt'), boxes, outputs, params,
                           net=key, cat=cat)
+            if self.stereo_baselines:
+                zzs = [float(el[2]) for el in np.asarray(dic_out['xyzd'])]
+                dic_xyz = self._run_stereo_baselines(basename, boxes, keypoints, zzs, kk,
+                                                     boxes_r, keypoints_r)
+                for key in dic_xyz:
+                    outs = list(outputs)
+                    outs[0] = dic_xyz[key]
+                    save_txts(os.path.join(dirs[key], basename + '.txt'), boxes, outs, params,
+                              net='baseline', cat=cat)
         print(f"\nSaved in {cnt_file} txt {cnt_ann} annotations. "
               f"Not found {cnt_no_file} images")
+        if stereo:
+            print("STEREO:")
+            for key in self.stereo_baselines:
+                ratio = self.cnt_disparity[key] / max(cnt_ann, 1) * 100
+                print(f"Annotations corrected using {key} baseline: {ratio:.1f}%")
+            print(f"Not found {self.cnt_no_stereo}/{cnt_file} stereo files")
+            if not self.reid_net.pretrained:
+                print("WARNING: the reid txts above used UNTRAINED (random) "
+                      "ReID features and are not a valid baseline")
         if self.generate_official:
             create_empty_files(dirs, self.net)
 
+    def _run_stereo_baselines(self, basename, boxes, keypoints, zzs, kk, boxes_r, keypoints_r):
+        """The pose and ReID associations of one image: {key: [[x, y, z] per
+        left pose]}, z the association's depth (the net's where it found no
+        pair) and x, y from the left pose's bottom point at that depth."""
+        uv_centers = np_get_keypoints(np.asarray(keypoints, np.float32), 'bottom')
+        xy_centers = np_pixel_to_camera(uv_centers, kk, 1)
+        if keypoints_r:
+            from .reid_baseline import get_reid_features
+            reid_features = get_reid_features(
+                self.reid_net, boxes, boxes_r, os.path.join(self.dir_images, basename + '.png'),
+                os.path.join(self.dir_images_r, basename + '.png'))
+            dic_zzs, cnt = baselines_association(self.stereo_baselines, zzs, keypoints,
+                                                 keypoints_r, reid_features)
+            for key in cnt:
+                self.cnt_disparity[key] += cnt[key]
+        else:
+            self.cnt_no_stereo += 1
+            dic_zzs = {key: zzs for key in self.stereo_baselines}
+        dic_xyz = defaultdict(list)
+        for key in dic_zzs:
+            for idx, zz_base in enumerate(dic_zzs[key]):
+                dic_xyz[key].append([float(xy_centers[idx][0]) * zz_base,
+                                     float(xy_centers[idx][1]) * zz_base, zz_base])
+        return dic_xyz
+
     def _load_image(self, basename, load_right):
         """Annotations, calibration and category flags of one image; the
-        right camera's keypoints only when the stereo net needs them."""
+        right camera's keypoints and boxes only when the stereo net needs
+        them."""
         path_calib = os.path.join(self.dir_kk, basename + '.txt')
         annotations, kk, tt = factory_file(path_calib, self.dir_ann, basename)
         boxes, keypoints = preprocess_pifpaf(annotations, im_size=(1242, 374))
         cat = get_category(keypoints, os.path.join(self.dir_byc, basename + '.json'))
-        keypoints_r = None
+        keypoints_r, boxes_r = None, []
         if load_right and keypoints:
             annotations_r, _, _ = factory_file(path_calib, self.dir_ann, basename,
                                                ann_type='right')
-            _, keypoints_r = preprocess_pifpaf(annotations_r, im_size=(1242, 374))
-        return boxes, keypoints, kk, tt, cat, keypoints_r
+            boxes_r, keypoints_r = preprocess_pifpaf(annotations_r, im_size=(1242, 374))
+        return boxes, keypoints, kk, tt, cat, keypoints_r, boxes_r
 
 
 def save_txts(path_txt, all_inputs, all_outputs, all_params, net='monoloco', cat=None):

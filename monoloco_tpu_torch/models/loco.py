@@ -182,6 +182,82 @@ def _batch_norm_train(p, state, x, row_mask):
     return y * p['scale'] + p['bias']
 
 
+def _batch_norm_train_mesh(p, state, x, mesh):
+    """Training-mode BatchNorm over the rows of every data rank: the sum and
+    then the squared deviations from the global mean are summed over the
+    data group (`all_reduce_data`, whose gradient is summed too), so the
+    statistics, the normalization and the running-stat update are those of
+    the global batch. x holds this rank's rows (possibly none) and this
+    rank's features (a shard under tp, or all of them)."""
+    from ..parallel import all_reduce_data
+    n = all_reduce_data(torch.tensor(float(x.shape[0]), device=x.device), mesh)
+    mean = all_reduce_data(x.sum(dim=0), mesh) / n
+    var = all_reduce_data(((x - mean) ** 2).sum(dim=0), mesh) / n
+    y = (x - mean) * torch.rsqrt(var + BN_EPS)
+    with torch.no_grad():
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+        state['mean'].mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        state['var'].mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+    return y * p['scale'] + p['bias']
+
+
+def dropout_site_sharded(n_stage):
+    """Whether each dropout site of `n_dropout_sites` order sees features
+    sharded over the model axis under `loco_param_specs`: after the input
+    layer yes; in each stage after its row-parallel w1 no (replicated),
+    after its column-parallel w2 yes; after w3 yes."""
+    return [True] + [False, True] * n_stage + [True]
+
+
+def loco_forward_train_mesh(params, bn_state, x, mesh, p_dropout=0.2, masks=None):
+    """The training forward of the Loco model on a mesh (`parallel/mesh.py`):
+    x this rank's rows, `params` and `bn_state` this rank's shards by
+    `loco_param_specs`, `masks` the keep-masks of this rank's rows and, at
+    the sharded sites (`dropout_site_sharded`), of its feature shard.
+    Megatron's layout: column-parallel layers take their input through
+    `copy_to_model`, row-parallel ones sum their partial products with
+    `reduce_from_model` and add their bias after it; BatchNorm takes the
+    global batch's statistics (`_batch_norm_train_mesh`). Returns
+    (outputs (rows, out), replicated over the model axis, [fin..., aux];
+    new_bn_state, this rank's shards)."""
+    from ..parallel import copy_to_model, reduce_from_model
+    new_state = _tree_clone(bn_state)
+    n_stage = params['stages']['w1']['w'].shape[0]
+    sites = iter(masks if p_dropout > 0 else ())
+
+    def relu_drop(h):
+        h = torch.relu(h)
+        if p_dropout > 0:
+            h = torch.where(next(sites), h / (1.0 - p_dropout), 0.0)
+        return h
+
+    def column(p, a):
+        return _dense_train(p, copy_to_model(a, mesh))
+
+    def row(p, a):
+        if mesh.tp == 1:
+            return _dense_train(p, a)
+        y = a @ p['w']
+        return reduce_from_model(y if y.dtype == torch.float32 else y.float(), mesh) + p['b']
+
+    def at(tree, i):
+        return {k: at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    y = relu_drop(_batch_norm_train_mesh(params['bn1'], new_state['bn1'],
+                                         column(params['w1'], x), mesh))
+    for i in range(n_stage):
+        sp, ss = at(params['stages'], i), at(new_state['stages'], i)
+        h = relu_drop(_batch_norm_train_mesh(sp['bn1'], ss['bn1'], row(sp['w1'], y), mesh))
+        h = relu_drop(_batch_norm_train_mesh(sp['bn2'], ss['bn2'], column(sp['w2'], h), mesh))
+        y = y + h
+    y2 = row(params['w2'], y)
+    aux = _dense_train(params['w_aux'], y2)
+    y3 = relu_drop(_batch_norm_train_mesh(params['bn3'], new_state['bn3'],
+                                          column(params['w3'], y2), mesh))
+    fin = row(params['w_fin'], y3)
+    return torch.cat([fin, aux], dim=1), new_state
+
+
 def train_keep_masks(rows, hidden, n_sites, p_dropout, generator, device):
     """One training step's keep-masks: `n_sites` bool (rows, hidden) tensors,
     True with probability 1 - p_dropout, drawn from `generator` (on

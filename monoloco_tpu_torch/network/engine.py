@@ -46,12 +46,22 @@ vmap over images make them. `forward`, `forward_batch` and
 `forward_batch_async` also take them injected (`mc=(masks, u)`), and
 `mc_last` keeps the last ones drawn.
 
-Not ported yet, and refused with NotImplementedError: device meshes
-(ROADMAP Queue 1 item 9).
+Under a mesh (`mesh=`, a `parallel.Mesh`; every rank builds the same Loco
+and calls `forward_batch_async` with the same images), the image bucket
+pads to a multiple of the data ranks, each rank runs its share of the
+images through the same routing (so dyn8 from 16 padded rows a rank, and
+K1-bf16 under bf16), and the outputs are all-gathered over the data group:
+every rank gets what one device computes. The dispatch counters count the
+rows of a rank's share, as the JAX engine's `_dispatch_shard_factor`. A
+mesh with a model axis above 1 computes the data shards alike on the ranks
+of a model group, with the full weights; it warns and drops the int8 route,
+as the JAX engine does (its Pallas kernel has no partitioning rule over the
+model axis). `forward`, one image, computes locally on every rank.
 """
 
 import math
 import os
+import warnings
 from collections import defaultdict
 
 import numpy as np
@@ -64,6 +74,7 @@ from ..geometry.stereo import BF, mask_joint_disparity
 from ..models import (FoldedLoco, dropout_masks, fold_eval_params, folded_forward,
                       folded_forward_mc, load_checkpoint, n_dropout_sites, params_from_numpy,
                       round_bf16)
+from ..parallel import gather_rows, row_range
 from ..ops import (fused_loco_forward, fused_loco_forward_dyn8_auto, pack_folded_weights,
                    pack_folded_weights_w8)
 from ..utils.precision import serve_storage, serving_precision, tf32_matmuls
@@ -144,10 +155,8 @@ class Loco:
                  p_dropout=0.2, linear_size=1024, n_stage=3, mesh=None):
         if mode not in ('mono', 'stereo'):
             raise ValueError(f"mode not recognized: {mode}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet: ROADMAP Queue 1 item 9")
         self.mode = mode
+        self.mesh = mesh
         if net is None:
             net = 'monoloco_pp' if mode == 'mono' else 'monstereo'
         if net not in self.NETS:
@@ -157,6 +166,8 @@ class Loco:
         self.n_dropout = n_dropout
         self.p_dropout = p_dropout
         self.mc_last = None
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device) if device is not None else default_device()
 
         if isinstance(model, (str, os.PathLike)):
@@ -184,7 +195,13 @@ class Loco:
                             'precision': self.precision}
         kernel_width = self.arch == 'loco' and self.linear_size % 128 == 0
         if self.precision == 'int8' and kernel_width:
-            self.mlp_weights['packed_int8'] = pack_folded_weights_w8(self.folded)
+            if mesh is not None and mesh.tp > 1:
+                warnings.warn(
+                    "MONOLOCO_TPU_PRECISION=int8 is ignored under a device mesh with a model "
+                    "axis: the int8 route serves data shards only. Serving the float32 path "
+                    "instead.", RuntimeWarning)
+            else:
+                self.mlp_weights['packed_int8'] = pack_folded_weights_w8(self.folded)
         if self.precision == 'bfloat16' and kernel_width:
             self.mlp_weights['packed_bf16'] = pack_folded_weights(self.folded, torch.bfloat16)
         # Which MLP path each dispatch ran: the int8 kernel only engages at
@@ -339,6 +356,13 @@ class Loco:
             return lambda: []
         m_bucket = _bucket(max(max(counts), 1))
         b_bucket = _bucket(n_img, minimum=1)
+        dp = 1 if self.mesh is None else self.mesh.dp
+        if dp > 1:
+            # The image axis splits over the data ranks: pad the batch bucket
+            # up to a multiple of them.
+            b_bucket = max(b_bucket, dp)
+            b_bucket += (-b_bucket) % dp
+        lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, self.mesh)
         kps = np.zeros((b_bucket, m_bucket, 3, 17), np.float32)
         kks = np.zeros((b_bucket, 3, 3), np.float32)
         kks[:] = np.eye(3)
@@ -348,7 +372,14 @@ class Loco:
             kks[i] = np.asarray(kk, np.float32)
 
         def dev(arr):
-            return torch.from_numpy(arr).to(self.device)
+            """This rank's images of a batch array, on the device."""
+            return torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(self.device)
+
+        def gather(dic):
+            if self.mesh is None:
+                return dic
+            return {k: (tuple(gather_rows(t, self.mesh) for t in v) if k == 'yaw'
+                        else gather_rows(v, self.mesh)) for k, v in dic.items()}
 
         epi_dev = None
         with torch.inference_mode():
@@ -367,16 +398,19 @@ class Loco:
                         # No right detections: the first left pose stands in.
                         kps_r[i, 0] = kps[i, 0]
                         r_mask[i, 0] = True
-                self._count_dispatch(b_bucket * m_bucket * r_bucket)
+                self._count_dispatch((hi - lo) * m_bucket * r_bucket)
                 dic_dev, best = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask),
                                                      dev(kks))
                 dic_dev['aux_idx'] = best.reshape(-1)
+                dic_dev = gather(dic_dev)
             else:
-                self._count_dispatch(b_bucket * m_bucket)
+                self._count_dispatch((hi - lo) * m_bucket)
                 kps_dev, kks_dev = dev(kps), dev(kks)
-                dic_dev = self._mono_forward(kps_dev, kks_dev)
+                dic_dev = gather(self._mono_forward(kps_dev, kks_dev))
                 if self._mc_on():
                     epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
+                    if self.mesh is not None:
+                        epi_dev = gather_rows(epi_dev, self.mesh)
 
         def finalize():
             dic = _to_host(dic_dev)

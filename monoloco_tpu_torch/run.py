@@ -15,7 +15,10 @@ openpifpaf it exits naming the missing one.
 eval, from the root of a KITTI layout (`data/kitti/gt`, `data/kitti/calib`,
 `splits/`): `--generate` writes `data/kitti/monoloco_pp/*.txt`
 (`--mode stereo`: `data/kitti/monstereo/`) with GenerateKitti, with
-`--baselines` (mono) also the `monoloco` and `geometric` trees, then
+`--baselines` also the `monoloco` and `geometric` trees (stereo: and the
+`pose` and `reid` trees, the ReID net's weights from `--reid_weights`),
+and with `--dp_devices N` over a mesh of N ranks (one process a device;
+rank 0 writes), then
 `--dataset kitti` (the default) scores every method folder present with
 EvalKitti, prints the summary table and writes `data/logs/eval-<stamp>.json`;
 `--save`/`--show` draw its figures (matplotlib). Scoring alone is host code
@@ -23,9 +26,7 @@ and needs no card. `--dataset nuscenes` runs the Trainer's `evaluate` on
 `--joints` with the checkpoint `--model` (on the card unless
 `--disable-cuda`). `--activity` (`--dataset kitti` or `collective`, with
 `--dir_ann` and `--model`) runs the ActivityEvaluator; `--geometric` and
-`--variance` study `--joints` on the host. Refused with a message naming
-the ROADMAP Queue 1 item: `--baselines` in stereo mode (item 8) and
-`--dp_devices` > 1 (item 9).
+`--variance` study `--joints` on the host.
 
 prep (host code, no device): from the root of a KITTI layout,
 `prep --dir_ann annotations [--mode stereo]` writes
@@ -42,8 +43,15 @@ continues a run (the port's checkpoints carry Adam's state, the update
 count and the generator; a JAX-written one its optax moments); `--hyp`
 runs HypTuning (`--multiplier`, `--r_seed`, `--monocular`;
 MONOLOCO_TPU_HYP_PARALLEL=1 trains each (bs, hidden, n_stage) group of
-trials as one stacked model). Refused: `.orbax` paths (orbax imports jax;
-ROADMAP "Not to port") and `--dp_devices`/`--tp_devices` > 1 (item 9).
+trials as one stacked model); `--dp_devices N [--tp_devices M]` trains on
+a mesh of N x M ranks, one process a device (`parallel/launch.py`: NCCL on
+the card, gloo with `--disable-cuda`), and computes what one device
+computes. Refused: `.orbax` paths (orbax imports jax; ROADMAP "Not to
+port").
+
+A mesh flag given, even `--dp_devices 1`, builds a mesh (for 1, a process
+group of this process alone); without one no process group is made, which
+is what the JAX CLI does for 1. Both compute the same.
 """
 
 import argparse
@@ -150,8 +158,10 @@ def cli(argv=None):
     add('--auto_tune_mtl', action='store_true',
         help='whether to use uncertainty to autotune losses')
     add('--no_save', help='to not save model and log file', action='store_true')
-    add('--dp_devices', type=int, default=1, help='data parallelism (not ported: 1 only)')
-    add('--tp_devices', type=int, default=1, help='tensor parallelism (not ported: 1 only)')
+    add('--dp_devices', type=int, default=None,
+        help='shard the batch over N devices (data parallelism)')
+    add('--tp_devices', type=int, default=None,
+        help='shard the hidden dim over N devices (tensor parallelism; total devices = dp*tp)')
     add('--resume', help='checkpoint to resume training from')
     add('--profile', help='directory for a torch.profiler trace of the training')
     add('--disable-cuda', dest='disable_cuda', action='store_true',
@@ -176,29 +186,53 @@ def cli(argv=None):
     add('--new', help='new', action='store_true')
     add('--variance', help='evaluate keypoints variance', action='store_true')
     add('--net', help='Choose network: monoloco, monoloco_p, monoloco_pp, monstereo')
-    add('--baselines', help='whether to evaluate the baselines (mono: monoloco and '
-        'geometric; stereo is not ported)', action='store_true')
+    add('--baselines', help='whether to evaluate the baselines (monoloco and geometric; '
+        'stereo: also pose and reid)', action='store_true')
     add('--reid_weights', default=None,
-        help='ReID checkpoint for the stereo baselines (not ported)')
+        help='path to a Market-1501 ReID checkpoint (torch .pkl/.pth, or the tiny_reid-v1 '
+             'pickle) for the stereo reid baseline; defaults to '
+             'data/models/reid_model_market.pkl if present')
     add('--generate_official', action='store_true',
         help='whether to add empty txt files for official evaluation')
-    add('--dp_devices', type=int, default=1,
-        help='shard txt generation over N devices (not ported: 1 only)')
+    add('--dp_devices', type=int, default=None,
+        help='shard txt generation over N devices (data parallelism)')
     add('--disable-cuda', dest='disable_cuda', action='store_true',
         help='run on the CPU; without it --generate needs a CUDA card')
     return parser.parse_args(argv)
 
 
-def _eval_refusal(args):
-    """The message for an eval option the port does not take, or None."""
-    if args.activity or args.geometric or args.variance:
-        return None            # the JAX CLI runs these before anything else
-    if args.baselines and args.generate and args.mode == 'stereo':
-        from .eval.generate_kitti import STEREO_BASELINES_REFUSAL
-        return STEREO_BASELINES_REFUSAL
-    if args.dp_devices > 1:
-        return "eval --dp_devices > 1 needs device meshes: ROADMAP Queue 1 item 9"
-    return None
+def mesh_shape(args):
+    """(dp, tp) of the mesh the flags ask for, or None without a flag."""
+    dp, tp = getattr(args, 'dp_devices', None), getattr(args, 'tp_devices', None)
+    if dp is None and tp is None:
+        return None
+    if (dp or 1) < 1 or (tp or 1) < 1:
+        raise SystemExit("--dp_devices and --tp_devices take a positive number of devices")
+    return dp or 1, tp or 1
+
+
+def _device_type(args):
+    return 'cpu' if getattr(args, 'disable_cuda', False) else 'cuda'
+
+
+def _generate_worker(mesh, args):
+    """GenerateKitti on one rank of the mesh; returns it."""
+    from .eval import GenerateKitti
+    args.mesh = mesh
+    gen = GenerateKitti(args)
+    gen.run()
+    return gen
+
+
+def _train_worker(mesh, args):
+    """Trainer.train and evaluate on one rank of the mesh; returns the
+    Trainer."""
+    from .train import Trainer
+    args.mesh = mesh
+    training = Trainer(args)
+    training.train()
+    training.evaluate()
+    return training
 
 
 def _require(args, *names):
@@ -241,10 +275,8 @@ def evaluate(args):
     """`eval`: --activity, --geometric or --variance when given (in that
     order, as the JAX CLI); else GenerateKitti with --generate, then
     EvalKitti for --dataset kitti. Returns the first one's result, or (the
-    GenerateKitti or None, the EvalKitti or, for nuScenes, the Trainer)."""
-    refusal = _eval_refusal(args)
-    if refusal:
-        raise SystemExit(refusal)
+    GenerateKitti (rank 0's on a mesh) or None, the EvalKitti or, for
+    nuScenes, the Trainer)."""
     if args.activity:
         return eval_activity(args)
     if args.geometric:
@@ -258,10 +290,13 @@ def evaluate(args):
                          "installed here")
     gen = None
     if args.generate:
-        from .eval import GenerateKitti
         from .ops import launches
-        gen = GenerateKitti(args)
-        gen.run()
+        shape = mesh_shape(args)
+        if shape is None:
+            gen = _generate_worker(None, args)
+        else:
+            from .parallel import launch
+            gen = launch(_generate_worker, *shape, args=(args,), device_type=_device_type(args))
         net = gen.model
         print(f"Dispatches: {net.n_dispatches}, through the dyn8 route: "
               f"{net.n_dispatches_int8}, kernel launches: {dict(launches)} "
@@ -321,11 +356,11 @@ def train(args):
                                monocular=args.monocular, dropout=args.dropout,
                                multiplier=args.multiplier, r_seed=args.r_seed)
         return hyp_tuning.train(args)
-    from .train import Trainer
-    training = Trainer(args)
-    training.train()
-    training.evaluate()
-    return training
+    shape = mesh_shape(args)
+    if shape is None:
+        return _train_worker(None, args)
+    from .parallel import launch
+    return launch(_train_worker, *shape, args=(args,), device_type=_device_type(args))
 
 
 def main(argv=None):

@@ -26,8 +26,15 @@ Endpoints:
   GET  /metrics      request/batch counters and latency percentiles.
 
 Usage: python -m monoloco_tpu_torch.serve --model <ckpt> [--mode mono]
-           [--port 8080] [--window-ms 2] [--max-batch 64]
-The card is required: without one the engine raises (no CPU fallback).
+           [--port 8080] [--window-ms 2] [--max-batch 64] [--dp_devices N]
+The card is required: without one the engine raises (no CPU fallback);
+`--disable-cuda` serves from the CPU.
+
+`--dp_devices N` serves over a data-parallel mesh of N ranks, one process a
+device (`parallel/launch.py`): rank 0 listens and collates, hands each
+coalesced dispatch to the other ranks (`follow`), which run their share of
+the images, and answers with the gathered outputs, what one device
+computes.
 """
 
 import argparse
@@ -39,6 +46,26 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch.distributed as dist
+
+
+def _share(net, kps, kks, kps_r):
+    """Under a mesh of several ranks, rank 0 hands a dispatch to the others
+    (`follow`) before it runs its share."""
+    mesh = getattr(net, 'mesh', None)
+    if mesh is not None and mesh.size > 1:
+        dist.broadcast_object_list([(kps, kks, kps_r)], src=0)
+
+
+def follow(net):
+    """Ranks 1.. of a serving mesh: run each dispatch rank 0 hands over, until
+    it hands over None."""
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        net.forward_batch_async(*box[0])
 
 
 def _to_jsonable(dic_out):
@@ -170,6 +197,7 @@ class Batcher:
             t_dev = time.perf_counter()
             # This thread runs the engine: forward_batch_async enters
             # torch.inference_mode itself (the mode is per thread).
+            _share(self.net, kps, kks, kps_r)
             finalize = self.net.forward_batch_async(kps, kks, kps_r)
             outs = finalize()
             self.device_s.append(time.perf_counter() - t_dev)
@@ -383,8 +411,9 @@ class Server:
         kps = np.zeros((1, 3, 17), np.float32)
         kk = np.eye(3, dtype=np.float32)
         kps_r = kps if self.net.net == 'monstereo' else None
-        self.net.forward_batch([kps], [kk],
-                               [kps_r] if kps_r is not None else None)
+        kps_r = [kps_r] if kps_r is not None else None
+        _share(self.net, [kps], [kk], kps_r)
+        self.net.forward_batch([kps], [kk], kps_r)
         weights = self.net.mlp_weights
         has_pack = (weights.get('packed_int8') is not None
                     or weights.get('packed_bf16') is not None)
@@ -416,28 +445,42 @@ def main(argv=None):
                              'shed with 503 (default 8 * max_batch)')
     parser.add_argument('--n-dropout', type=int, default=0,
                         help='MC-dropout samples for epistemic uncertainty')
-    parser.add_argument('--dp_devices', type=int, default=1,
-                        help='data-parallel devices; the port serves one card '
-                             '(meshes: ROADMAP Queue 1 item 9)')
+    parser.add_argument('--dp_devices', type=int, default=None,
+                        help='shard each coalesced batch over an N-device data-parallel '
+                             'mesh (the image axis over the data ranks, as '
+                             'eval --generate --dp_devices)')
+    parser.add_argument('--disable-cuda', dest='disable_cuda', action='store_true',
+                        help='serve from the CPU; without it the server needs a CUDA card')
     args = parser.parse_args(argv)
-    if args.dp_devices > 1:
-        raise SystemExit(f"--dp_devices {args.dp_devices}: device meshes are not "
-                         "ported yet (ROADMAP Queue 1 item 9); the port serves one card")
     # The JAX server's TPU liveness probe and XLA compilation cache have no
     # counterpart here (ROADMAP "Not to port").
+    if args.dp_devices is None:
+        return _serve(None, args)
+    if args.dp_devices < 1:
+        raise SystemExit("--dp_devices takes a positive number of devices")
+    from .parallel import launch
+    return launch(_serve, args.dp_devices, 1, args=(args,),
+                  device_type='cpu' if args.disable_cuda else 'cuda')
+
+
+def _serve(mesh, args):
+    """Serve until SIGTERM (rank 0 of a mesh), or follow rank 0 (the others)."""
     from .network import Loco
-    net = Loco(model=args.model, mode=args.mode, net=args.net,
-               n_dropout=args.n_dropout)
+    net = Loco(model=args.model, mode=args.mode, net=args.net, n_dropout=args.n_dropout,
+               device='cpu' if args.disable_cuda else None, mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        return follow(net)
     server = Server(net, host=args.host, port=args.port,
                     window_ms=args.window_ms, max_batch=args.max_batch,
                     max_queue=args.max_queue)
     print('warming up (the single-image bucket and the kernels\' library)...',
           flush=True)
     server.warmup()
+    dp_note = f', dp{mesh.dp} mesh' if mesh is not None else ''
     print(f'serving {net.net} (hidden {net.linear_size}) on '
           f'http://{args.host}:{server.port}  '
           f'[window {args.window_ms} ms, max batch {args.max_batch}, '
-          f'precision {net.precision_raw}]', flush=True)
+          f'precision {net.precision_raw}{dp_note}]', flush=True)
     import signal
     # httpd.shutdown() blocks until serve_forever's loop exits; the handler
     # runs ON the main thread that loop is suspended under, so it must hand
@@ -449,6 +492,8 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     server.shutdown()
+    if mesh is not None and mesh.size > 1:
+        dist.broadcast_object_list([None], src=0)
 
 
 if __name__ == '__main__':

@@ -38,6 +38,21 @@ come from the same generator), the per-epoch sums of the logs and the copy
 of the best weights stay on the device; the logs come to the host once an
 epoch, with the validation losses, in one copy.
 
+On a mesh (`args.mesh`, a `parallel.Mesh` of more than one rank; `run
+train --dp_devices/--tp_devices` launches one process a device), every rank
+holds the whole dataset and draws the same epoch order and keep-masks from
+its generator; each data rank takes its rows of every global batch
+(`parallel.row_range`), and the step computes what one device computes:
+BatchNorm takes the global batch's statistics, the loss is the global mean
+(each rank's rows' sum over the global row count), the model gradients are
+summed over the data group before the clip, whose norm is the global
+gradient's. Under tp > 1 the weights, their Adam moments and the BN state
+are this rank's shards by `parallel.loco_param_specs` and the forward is
+Megatron's (`models.loco_forward_train_mesh`); the sharded leaves' squares
+are summed over the model group once for the clip's norm. The val losses,
+`evaluate()` and the checkpoint use the gathered full weights; rank 0
+alone writes files. A mesh of one rank is no mesh.
+
 Precision follows MONOLOCO_TPU_PRECISION (`utils/precision.py`): default,
 float32 and int8 train in f32 with TF32 off (int8 names a serving kernel
 only), tensorfloat32 turns TF32 on, bf16 runs the linear layers under
@@ -54,13 +69,18 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import __version__
-from ..models import (init_loco_params, load_checkpoint, load_train_state, loco_forward,
-                      loco_forward_train, params_from_numpy, save_train_state)
+from ..models import (dropout_site_sharded, init_loco_params, load_checkpoint,
+                      load_train_state, loco_forward, loco_forward_train,
+                      loco_forward_train_mesh, n_dropout_sites, params_from_numpy,
+                      save_train_state, train_keep_masks)
 from ..models.checkpoint import ORBAX_REFUSAL
 from ..models.loco import _tree_clone as _clone
 from ..network.decode import extract_labels, extract_outputs
+from ..parallel import (MODEL_AXIS, gather_by_specs, loco_param_specs, reduce_loss, row_range,
+                        shard_by_specs, shard_dim, spec_leaves)
 from ..utils import set_logger
 from ..utils.precision import serving_precision, tf32_matmuls
 from .datasets import KeypointsDataset
@@ -76,8 +96,6 @@ def refusal(args):
     """The message for a training option the port does not take, or None."""
     if any(str(getattr(args, key, None) or '').endswith('.orbax') for key in ('out', 'resume')):
         return ORBAX_REFUSAL
-    if getattr(args, 'dp_devices', 1) > 1 or getattr(args, 'tp_devices', 1) > 1:
-        return "train --dp_devices/--tp_devices > 1 need device meshes: ROADMAP Queue 1 item 9"
     return None
 
 
@@ -121,9 +139,10 @@ class Trainer:
     dir_figures = os.path.join('figures', 'losses')
 
     def __init__(self, args, device=None):
-        """`args` carries the JAX CLI's train flags. The device is `device`
-        when given, else the CPU under `args.disable_cuda`, else the card
-        (`default_device()` raises without one)."""
+        """`args` carries the JAX CLI's train flags. The device is the mesh's
+        (`args.mesh`) when there is one, else `device` when given, else the
+        CPU under `args.disable_cuda`, else the card (`default_device()`
+        raises without one)."""
         message = refusal(args)
         if message:
             raise SystemExit(message)
@@ -144,6 +163,11 @@ class Trainer:
         self.auto_tune_mtl = getattr(args, 'auto_tune_mtl', False)
         self.profile = getattr(args, 'profile', None)
         self.resume = getattr(args, 'resume', None)
+        mesh = getattr(args, 'mesh', None)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.main = mesh is None or mesh.is_main
+        if mesh is not None:
+            device = mesh.device
         if device is None:
             if getattr(args, 'disable_cuda', False):
                 device = 'cpu'
@@ -187,7 +211,7 @@ class Trainer:
                                             self.output_size[self.mode], self.hidden_size,
                                             self.n_stage)
         self.set_weights(params, bn_state)
-        print(">>> model params: {:.3f}M".format(count_params(self.params) / 1e6))
+        print(">>> model params: {:.3f}M".format(count_params(params) / 1e6))
         self.start_epoch = 0
         self._resume_best = None
         if self.resume:
@@ -199,7 +223,7 @@ class Trainer:
         """Start from (params, bn_state) — the port's or the JAX package's
         trees, of tensors or arrays — and, under auto-tune, `log_sigmas`
         (zeros when None), with a fresh optimizer and step count."""
-        params, bn_state = params_from_numpy(params, bn_state, self.device)
+        params, bn_state = self._shard(*params_from_numpy(params, bn_state, self.device))
         self.params, self.bn_state = _clone(params), _clone(bn_state)
         self._model_leaves = _leaves(self.params)
         for t in self._model_leaves:
@@ -218,6 +242,32 @@ class Trainer:
     def _trainable(self):
         """What Adam updates: the model's leaves, then the log-sigmas."""
         return self._model_leaves + ([self.log_sigmas] if self.log_sigmas is not None else [])
+
+    def _tp(self):
+        return self.mesh is not None and self.mesh.tp > 1
+
+    def _shard(self, params, bn_state):
+        """This rank's shards of full (params, bn_state) under tp > 1."""
+        if not self._tp():
+            return params, bn_state
+        p_spec, bn_spec = loco_param_specs()
+        return shard_by_specs(params, self.mesh, p_spec), shard_by_specs(bn_state, self.mesh,
+                                                                          bn_spec)
+
+    def _full(self, params, bn_state):
+        """The full (params, bn_state) from this rank's shards under tp > 1
+        (collective: every rank calls it)."""
+        if not self._tp():
+            return params, bn_state
+        p_spec, bn_spec = loco_param_specs()
+        return gather_by_specs(params, self.mesh, p_spec), gather_by_specs(bn_state, self.mesh,
+                                                                           bn_spec)
+
+    def _trainable_dims(self):
+        """The dim each `_trainable()` tensor is split on over the model
+        axis (None: replicated)."""
+        dims = [shard_dim(s) if self._tp() else None for s in spec_leaves(loco_param_specs()[0])]
+        return dims + ([None] if self.log_sigmas is not None else [])
 
     def _resume_from(self, path):
         """Continue from the final state of the checkpoint `path` (module
@@ -255,7 +305,8 @@ class Trainer:
         # The checkpoint's best-validation weights seed the best tracking, so
         # a resumed segment that never beats them keeps them.
         if meta.get('best_val_acc') is not None:
-            params, bn_state = params_from_numpy(blob['params'], blob['bn_state'], self.device)
+            params, bn_state = self._shard(*params_from_numpy(blob['params'], blob['bn_state'],
+                                                              self.device))
             self._resume_best = (float(meta['best_val_acc']),
                                  float(meta.get('best_train_acc', 1e6)),
                                  int(meta.get('best_epoch', self.start_epoch)), params, bn_state)
@@ -268,8 +319,13 @@ class Trainer:
         if len(exp_avg) != len(trainable) or len(exp_avg_sq) != len(trainable):
             raise ValueError(f"--resume: the checkpoint's Adam state has {len(exp_avg)} "
                              f"tensors, this model {len(trainable)}")
-        for t, m, v in zip(trainable, exp_avg, exp_avg_sq):
+        for t, m, v, dim in zip(trainable, exp_avg, exp_avg_sq, self._trainable_dims()):
             m, v = np.asarray(m, np.float32), np.asarray(v, np.float32)
+            if dim is not None:
+                n = m.shape[dim] // self.mesh.tp
+                take = slice(self.mesh.model_rank * n, (self.mesh.model_rank + 1) * n)
+                m, v = m.swapaxes(0, dim)[take].swapaxes(0, dim), \
+                    v.swapaxes(0, dim)[take].swapaxes(0, dim)
             if m.shape != tuple(t.shape) or v.shape != tuple(t.shape):
                 raise ValueError(f"--resume: Adam moment of shape {m.shape} for a tensor of "
                                  f"shape {tuple(t.shape)}")
@@ -280,17 +336,21 @@ class Trainer:
 
     def train_state(self):
         """The port's resume state (numpy): Adam's step and moments in
-        `_trainable()` order, the update count, the generator's state."""
+        `_trainable()` order (whole: gathered over the model axis under tp,
+        a collective), the update count, the generator's state."""
         exp_avg, exp_avg_sq, step = [], [], 0.0
-        for t in self._trainable():
+        for t, dim in zip(self._trainable(), self._trainable_dims()):
             st = self.optimizer.state.get(t, {})
             if st:
                 step = float(st['step'])
-                exp_avg.append(st['exp_avg'].detach().cpu().numpy())
-                exp_avg_sq.append(st['exp_avg_sq'].detach().cpu().numpy())
+                moments = (st['exp_avg'].detach(), st['exp_avg_sq'].detach())
             else:
-                exp_avg.append(np.zeros(tuple(t.shape), np.float32))
-                exp_avg_sq.append(np.zeros(tuple(t.shape), np.float32))
+                moments = (torch.zeros_like(t), torch.zeros_like(t))
+            if dim is not None:
+                moments = [gather_by_specs(m, self.mesh, (None,) * dim + (MODEL_AXIS,))
+                           for m in moments]
+            exp_avg.append(moments[0].cpu().numpy())
+            exp_avg_sq.append(moments[1].cpu().numpy())
         return {'adam': {'step': step, 'exp_avg': exp_avg, 'exp_avg_sq': exp_avg_sq},
                 'n_steps': self.n_steps,
                 'generator': self.gen.get_state().cpu().numpy(),
@@ -326,6 +386,8 @@ class Trainer:
         on). Returns device tensors (the train loss, the model gradients'
         global norm before clipping, the logs [total, one per task] of the
         validation-flavour losses times the batch's rows)."""
+        if self.mesh is not None:
+            return self._mesh_step(x, y, masks)
         with self._precision():
             out, new_bn = loco_forward_train(self.params, self.bn_state, x, self.dropout,
                                              masks=masks, generator=self.gen)
@@ -349,11 +411,78 @@ class Trainer:
             logs = torch.stack([log_total] + val_values) * x.shape[0]
         return total.detach(), gnorm, logs
 
+    def _mesh_step(self, x, y, masks):
+        """`step` on the mesh: x, y the global batch (every rank's copy),
+        `masks` the global batch's keep-masks (drawn here when None, from the
+        generator every rank shares). This rank keeps its rows of each and,
+        at the sharded sites under tp, its features."""
+        mesh, rows = self.mesh, x.shape[0]
+        lo, hi = row_range(rows, mesh)
+        if self.dropout > 0:
+            if masks is None:
+                masks = train_keep_masks(rows, self.hidden_size, n_dropout_sites(self.n_stage),
+                                         self.dropout, self.gen, self.device)
+            width = self.hidden_size // mesh.tp
+            cols = slice(mesh.model_rank * width, (mesh.model_rank + 1) * width)
+            masks = [m[lo:hi, cols] if sharded and mesh.tp > 1 else m[lo:hi]
+                     for m, sharded in zip(masks, dropout_site_sharded(self.n_stage))]
+        x, y = x[lo:hi], y[lo:hi]
+        with self._precision():
+            out, new_bn = loco_forward_train_mesh(self.params, self.bn_state, x, mesh,
+                                                  self.dropout, masks=masks)
+        ones = torch.ones(hi - lo, device=self.device)
+
+        def global_mean(values):
+            # Each rank's mean of its rows, weighted by its share of the rows.
+            return [reduce_loss(v * ((hi - lo) / rows), mesh) for v in values]
+
+        values = global_mean(composite_losses(out, y, self.tasks, phase='train', mask=ones))
+        total, _ = weighted_total(values, self.lambdas, self.log_sigmas)
+        self.optimizer.zero_grad(set_to_none=True)
+        with self._precision(backward=True):
+            total.backward()
+        if mesh.dp > 1:
+            for t in self._model_leaves:
+                dist.all_reduce(t.grad, group=mesh.data_group)
+        gnorm = self._clip_grads()
+        for group in self.optimizer.param_groups:
+            group['lr'] = self.lr_at(self.n_steps)
+        self.optimizer.step()
+        self.n_steps += 1
+        self.bn_state = new_bn
+        with torch.no_grad():
+            log_total, _ = weighted_total([v.detach() for v in values], self.lambdas,
+                                          self.log_sigmas)
+            val_values = global_mean(composite_losses(out.detach(), y, self.tasks, phase='val',
+                                                      mask=ones))
+            logs = torch.stack([log_total] + val_values) * rows
+        return total.detach(), gnorm, logs
+
+    def _clip_grads(self):
+        """Clip the model gradients' global norm to GRAD_CLIP (as
+        `clip_grad_norm_`); under tp the sharded leaves' squares are summed
+        over the model group, the replicated ones counted once. Returns the
+        norm before clipping."""
+        if not self._tp():
+            return torch.nn.utils.clip_grad_norm_(self._model_leaves, GRAD_CLIP)
+        dims = self._trainable_dims()[:len(self._model_leaves)]
+        sharded = sum(t.grad.pow(2).sum() for t, d in zip(self._model_leaves, dims)
+                      if d is not None)
+        replicated = sum(t.grad.pow(2).sum() for t, d in zip(self._model_leaves, dims)
+                         if d is None)
+        dist.all_reduce(sharded, group=self.mesh.model_group)
+        norm = torch.sqrt(sharded + replicated)
+        coef = torch.clamp(GRAD_CLIP / (norm + 1e-6), max=1.0)
+        for t in self._model_leaves:
+            t.grad.mul_(coef)
+        return norm
+
     def val_metrics(self, params=None, bn_state=None):
         """[total, one per task] of the validation losses on the val set,
-        eval-mode forward, on the device."""
-        params = self.params if params is None else params
-        bn_state = self.bn_state if bn_state is None else bn_state
+        eval-mode forward, on the device (on a mesh every rank computes them
+        from the full weights)."""
+        params, bn_state = self._full(self.params if params is None else params,
+                                      self.bn_state if bn_state is None else bn_state)
         with torch.no_grad(), self._precision():
             out = loco_forward(params, bn_state, self.x_va)
         with torch.no_grad():
@@ -380,7 +509,8 @@ class Trainer:
             best_epoch = self._train()
             if on_card:
                 torch.cuda.synchronize()
-        prof.export_chrome_trace(os.path.join(self.profile, 'train_trace.json'))
+        if self.main:
+            prof.export_chrome_trace(os.path.join(self.profile, 'train_trace.json'))
         return best_epoch
 
     def _train(self):
@@ -462,14 +592,17 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
-    def eval_stats(self, x_cat, y_cat, group_masks):
+    def eval_stats(self, x_cat, y_cat, group_masks, params=None, bn_state=None):
         """The eval-mode forward over the concatenated rows and, per group
         (a 0/1 row mask), the validation losses and [bi_mean, bi_coverage,
         err_sum, err_sumsq, count, aux_acc]. Returns numpy (G, n_tasks) and
-        (G, 6), fetched in one copy."""
+        (G, 6), fetched in one copy. The weights are (params, bn_state), or
+        the trainer's (full ones: every rank of a mesh computes them)."""
+        if params is None:
+            params, bn_state = self._full(self.params, self.bn_state)
         with torch.no_grad():
             with self._precision():
-                out = loco_forward(self.params, self.bn_state, x_cat)
+                out = loco_forward(params, bn_state, x_cat)
             out = out.float()
             dec = extract_outputs(out)
             gt = extract_labels(y_cat)
@@ -495,7 +628,7 @@ class Trainer:
     def evaluate(self, load=False, model=None, debug=False):
         if load:
             params, bn_state, _ = load_checkpoint(model, device=self.device)
-            self.params, self.bn_state = params, bn_state
+            self.params, self.bn_state = self._shard(params, bn_state)
 
         dic_err = defaultdict(lambda: defaultdict(lambda: defaultdict(lambda: 0)))
         dic_err['val']['sigmas'] = [0.] * len(self.tasks)
@@ -550,6 +683,10 @@ class Trainer:
 
         if not (self.no_save or load):
             self.path_model = self.path_out
+            params, bn_state = self._full(self.params, self.bn_state)
+            final = self._full(getattr(self, 'final_params', self.params),
+                               getattr(self, 'final_bn_state', self.bn_state))
+            train_state = self.train_state()
             meta = {'mode': self.mode, 'tasks': self.tasks,
                     'hidden_size': self.hidden_size, 'n_stage': self.n_stage,
                     'epoch': getattr(self, 'last_epoch', 0) + 1,
@@ -559,14 +696,13 @@ class Trainer:
                     'version': __version__}
             log_sigmas = (self.log_sigmas.detach().cpu().numpy()
                           if self.log_sigmas is not None else None)
-            save_train_state(self.path_model, {
-                'params': self.params, 'bn_state': self.bn_state,
-                'final_params': getattr(self, 'final_params', self.params),
-                'final_bn_state': getattr(self, 'final_bn_state', self.bn_state),
-                'log_sigmas': log_sigmas, 'meta': meta,
-                'torch_train_state': self.train_state()})
-            print('-' * 120)
-            self.logger.info("\nmodel saved: {} \n".format(self.path_model))
+            if self.main:
+                save_train_state(self.path_model, {
+                    'params': params, 'bn_state': bn_state,
+                    'final_params': final[0], 'final_bn_state': final[1],
+                    'log_sigmas': log_sigmas, 'meta': meta, 'torch_train_state': train_state})
+                print('-' * 120)
+                self.logger.info("\nmodel saved: {} \n".format(self.path_model))
         else:
             self.logger.info("\nmodel not saved\n")
         return dic_err, (self.params, self.bn_state)
@@ -627,7 +763,7 @@ class Trainer:
                 plt.close()
 
     def _set_logger(self, args):
-        if self.no_save:
+        if self.no_save or not self.main:
             logging.basicConfig(level=logging.INFO)
             self.logger = logging.getLogger(__name__)
         else:

@@ -205,15 +205,29 @@ def test_legacy_mono_nets_match_jax(net, out_dim):
 
 
 def test_refuses_what_is_not_ported(monkeypatch):
-    """Meshes are refused with their ROADMAP Queue 1 item; MC dropout runs
-    (tests/test_torch_mc.py), stereo too (tests/test_torch_stereo.py). Every
-    precision spelling of the JAX package is served, an unknown one raises."""
+    """Nothing is refused now: a one-rank mesh (gloo, in this process)
+    computes what no mesh computes (tests/test_torch_parallel.py holds
+    several ranks); MC dropout runs (tests/test_torch_mc.py), stereo too
+    (tests/test_torch_stereo.py). Every precision spelling of the JAX
+    package is served, an unknown one raises."""
     params, bn = _toy_params()
     model = params_from_numpy(params, bn)
     assert Loco(model=model, mode='stereo', net='monoloco_pp', device='cpu').mode == 'stereo'
     assert Loco(model=model, n_dropout=3, device='cpu').n_dropout == 3
-    with pytest.raises(NotImplementedError, match='item 9'):
-        Loco(model=model, mesh=object(), device='cpu')
+    rng = np.random.RandomState(0)
+    kps = [rng.rand(m, 3, 17).astype(np.float32) * 300 for m in (3, 5, 1)]
+    kks = [np.eye(3, dtype=np.float32) * 700] * 3
+
+    def on_mesh(mesh):
+        net = Loco(model=model, mesh=mesh, device='cpu')
+        assert net.mesh is mesh and net.device == mesh.device
+        return net.forward_batch(kps, kks)
+
+    from monoloco_tpu_torch.parallel import launch
+    for ours, ref in zip(launch(on_mesh, 1, device_type='cpu', timeout=60),
+                         Loco(model=model, device='cpu').forward_batch(kps, kks)):
+        for key in ('xyzd', 'bi', 'h'):
+            assert np.array_equal(ours[key], ref[key])
     monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'fp16')
     with pytest.raises(ValueError, match='MONOLOCO_TPU_PRECISION'):
         serving_precision()

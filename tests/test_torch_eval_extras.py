@@ -23,6 +23,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 
 from monoloco_tpu.eval import eval_activity as jax_activity
 from monoloco_tpu.eval import eval_variance as jax_variance
@@ -35,12 +36,13 @@ from monoloco_tpu.visuals import plot_3d_box as jax_box
 from monoloco_tpu_torch import run
 from monoloco_tpu_torch.eval import GenerateKitti, eval_activity, eval_variance, geom_baseline
 from monoloco_tpu_torch.eval import stereo_baselines
-from monoloco_tpu_torch.models import init_monoloco_params
+from monoloco_tpu_torch.models import init_loco_params, init_monoloco_params, save_checkpoint
 from monoloco_tpu_torch.prep import PreprocessKitti
 from monoloco_tpu_torch.tools import eval_parity
 from monoloco_tpu_torch.tools.make_synthetic_kitti import encode_png, make_dataset
 from monoloco_tpu_torch.visuals import plot_3d_box
-from test_torch_generate_kitti import _assert_trees_close, _read_tree
+from test_torch_generate_kitti import (STEREO_TREES, _assert_reid_trees_close,
+                                       _assert_trees_close, _read_tree, _stereo_baselines)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -287,13 +289,28 @@ def test_mono_baselines_trees_match_jax(in_tree, tmp_path):
     assert gen.model.n_dispatches == gen.monoloco.n_dispatches == len(ours['monoloco_pp'])
 
 
-def test_stereo_baselines_are_refused(in_tree):
-    with pytest.raises(NotImplementedError, match='item 8'):
-        GenerateKitti(_eval_args(mode='stereo', baselines=True))
-    with pytest.raises(SystemExit) as exc:
-        run.main(['eval', '--generate', '--baselines', '--mode', 'stereo', '--dir_ann',
-                  'annotations', '--model', MODEL, '--disable-cuda'])
-    assert 'item 8' in str(exc.value.code)
+def test_stereo_baselines_are_refused(tmp_path, capsys):
+    """The name is kept from when the port refused the stereo baselines; they
+    run now. `--baselines --mode stereo` with the tiny ReID fixture
+    (`--reid_weights`), against the JAX package's: the monstereo, monoloco,
+    geometric, pose and reid trees row by row (the reid rows are the pose
+    rows' association by ReID features: the same left-right pairs give the
+    same depths), and the counters equal."""
+    old = os.getcwd()
+    try:
+        gen, jgen, ours, ref = _stereo_baselines(
+            tmp_path, os.path.join(HERE, 'fixture_tiny_reid.pkl'))
+    finally:
+        os.chdir(old)
+    for method in STEREO_TREES[:-1]:
+        assert _assert_trees_close(ours[method], ref[method]) > 10, method
+    _assert_reid_trees_close(gen, ours['reid'], ref['reid'])
+    assert dict(gen.cnt_disparity) == dict(jgen.cnt_disparity)
+    assert gen.cnt_disparity['reid'] > 0 and gen.cnt_disparity['pose'] > 0
+    assert gen.cnt_no_stereo == jgen.cnt_no_stereo
+    assert gen.reid_net.pretrained and gen.reid_net.height == 64
+    out = capsys.readouterr().out
+    assert 'STEREO:' in out and 'Annotations corrected using reid baseline' in out
 
 
 def test_init_monoloco_params_has_the_jax_layout():
@@ -478,10 +495,38 @@ def test_cli_dispatches_every_new_eval_flag(in_tree, tree, monkeypatch, capsys):
     (['train', '--dp_devices', '2'], 'item 9'),
 ])
 def test_cli_refusals_name_their_reason(in_tree, tree, argv, reason):
+    """orbax paths are refused naming their reason. The cases of ROADMAP
+    items 8 and 9 keep their ids from when the port refused them; they run
+    now: the stereo baselines write their five trees, `eval --generate
+    --dp_devices 2` and `train --dp_devices 2` run over a gloo mesh."""
     if argv[0] == 'train':
         argv = argv + ['--joints', tree['joints'], '--disable-cuda']
     else:
         argv = argv + ['--dir_ann', 'annotations', '--model', MODEL, '--disable-cuda']
+    if reason == 'item 8':
+        os.makedirs(os.path.join('data', 'models'), exist_ok=True)
+        save_checkpoint(GenerateKitti.monoloco_checkpoint,
+                        *init_monoloco_params(0, 34, 2, 256, 3))
+        params, bn = init_loco_params(0, 68, 10, 64, 2)
+        params['w_fin']['b'][0:3] += torch.tensor([np.pi / 2, np.pi / 2, 15.0])
+        save_checkpoint('stereo.pkl', params, bn)
+        # The hard-mode tree has left images only; the JAX test copies them.
+        shutil.copytree(os.path.join('data', 'kitti', 'images'),
+                        os.path.join('data', 'kitti', 'images_r'))
+        argv[argv.index(MODEL)] = 'stereo.pkl'
+        gen, ev = run.main(argv + ['--hidden_size', '64', '--n_stage', '2', '--reid_weights',
+                                   os.path.join(HERE, 'fixture_tiny_reid.pkl')])
+        for method in ('monstereo', 'monoloco', 'geometric', 'pose', 'reid'):
+            assert method in ev.methods
+            assert len(os.listdir(os.path.join('data', 'kitti', method))) == 40
+        return
+    if reason == 'item 9':
+        extra = (['--epochs', '1', '--hidden_size', '32', '--n_stage', '2', '--no_save']
+                 if argv[0] == 'train' else ['--generate'])
+        out = run.main(argv + extra)
+        mesh = (out if argv[0] == 'train' else out[0].model).mesh
+        assert mesh.dp == 2 and mesh.tp == 1
+        return
     with pytest.raises(SystemExit) as exc:
         run.main(argv)
     assert exc.value.code not in (0, None) and reason in str(exc.value.code)

@@ -209,11 +209,14 @@ def test_cli_generate_needs_a_card(root):
         run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model', MODEL])
 
 
-# The first six cases keep their ids from when the port refused them; they
-# run now (`_NOW_RUN`): --activity, --geometric and --variance dispatch before
+# Every case keeps its id from when the port refused it; they run now
+# (`_NOW_RUN`): --activity, --geometric and --variance dispatch before
 # --generate, as in the JAX CLI; --baselines (mono) writes the legacy and
-# geometric trees; --save and --show draw EvalKitti's figures.
-_NOW_RUN = ('--activity', '--geometric', '--variance', '--baselines', '--save', '--show')
+# geometric trees; --save and --show draw EvalKitti's figures; --dp_devices
+# generates over a gloo mesh (then scores, or with --dataset nuscenes runs
+# the Trainer's evaluate, stubbed here).
+_NOW_RUN = ('--activity', '--geometric', '--variance', '--baselines', '--save', '--show',
+            '--dp_devices', '--dataset')
 
 
 @pytest.mark.parametrize('extra,match', [
@@ -227,8 +230,7 @@ _NOW_RUN = ('--activity', '--geometric', '--variance', '--baselines', '--save', 
     (['--dp_devices', '2'], 'item 9'),
 ])
 def test_unported_eval_options_are_refused(root, capsys, monkeypatch, extra, match):
-    """Meshes are refused before anything is generated or scored; the
-    options once refused run."""
+    """The options once refused run."""
     argv = ['eval', '--generate', '--dir_ann', 'annotations', '--model', MODEL,
             '--disable-cuda', *extra]
     if extra[0] in _NOW_RUN:
@@ -237,6 +239,13 @@ def test_unported_eval_options_are_refused(root, capsys, monkeypatch, extra, mat
             monkeypatch.setattr(run, f'eval_{name}', lambda args: ('ran', name))
             assert run.main(argv) == ('ran', name)
             assert not os.path.exists(os.path.join(KITTI, 'monoloco_pp'))
+            return
+        if name in ('dp_devices', 'dataset'):
+            monkeypatch.setattr(run, 'evaluate_nuscenes', lambda args: 'nuscenes')
+            gen, ev = run.main(argv)
+            assert gen.model.mesh.dp == 2
+            assert len(os.listdir(os.path.join(KITTI, 'monoloco_pp'))) == N_VAL
+            assert ev == 'nuscenes' if name == 'dataset' else set(ev.methods) == {'monoloco_pp'}
             return
         if name == 'baselines':
             from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint

@@ -38,6 +38,7 @@ import torch
 
 from monoloco_tpu.eval import GenerateKitti as JaxGenerateKitti
 from monoloco_tpu.models import init_loco_params as jax_init
+from monoloco_tpu.models import init_monoloco_params as jax_init_monoloco
 from monoloco_tpu.models import save_checkpoint as jax_save
 from monoloco_tpu.utils import read_and_rewrite as jax_read_and_rewrite
 from monoloco_tpu_torch.eval import GenerateKitti
@@ -272,10 +273,95 @@ def test_generate_official_writes_the_official_layout(root, dataset):
                 assert os.path.getsize(os.path.join(d, name)) == 0
 
 
-def test_baselines_are_refused(root):
-    """The stereo baselines (pose and ReID association) need the ReID net
-    and are refused naming ROADMAP item 8; the mono ones run
-    (tests/test_torch_eval_extras.py holds their trees against the JAX
-    package's)."""
-    with pytest.raises(NotImplementedError, match='item 8'):
-        GenerateKitti(_args('stereo', MODEL, baselines=True))   # refused before any load
+STEREO_TREES = ('monstereo', 'monoloco', 'geometric', 'pose', 'reid')
+
+
+def _stereo_baselines_root(path):
+    """An easy-mode synthetic tree with identity-textured left and right
+    images (seed 33, 10 val scenes), a MonStereo checkpoint (JAX init,
+    hidden 64, 2 stages, people 15 m ahead) and the legacy MonoLoco one
+    (JAX init, hidden 256), as the JAX package's
+    `tests/test_kitti_pipeline.py:422` sets up; made the working directory."""
+    make_dataset(str(path), n_train=2, n_val=10, seed=33, images=True)
+    os.chdir(path)
+    os.makedirs(os.path.join('data', 'models'), exist_ok=True)
+    params, bn = jax_init_monoloco(jax.random.PRNGKey(0), 34, 2, 256, 3)
+    jax_save(GenerateKitti.monoloco_checkpoint, params, bn, meta={'net': 'monoloco'})
+    params, bn = jax_init(jax.random.PRNGKey(5), 68, 10, 64, 2)
+    params = jax.tree_util.tree_map(np.array, params)
+    params['w_fin']['b'][0:3] += np.array([np.pi / 2, np.pi / 2, 15.0], np.float32)
+    jax_save('stereo.pkl', params, bn, meta={})
+
+
+def _stereo_baselines(tmp_path, reid_weights, set_reid=None):
+    """`eval --generate --baselines --mode stereo` by both packages, each in
+    its own copy of the root: (the port's GenerateKitti, the JAX one, their
+    five trees). `set_reid(gen, jgen)` may replace the ReID nets before the
+    runs. Leaves the working directory where it was."""
+    old = os.getcwd()
+    try:
+        _stereo_baselines_root(tmp_path / 'ours')
+        shutil.copytree('.', tmp_path / 'jax')
+        kw = dict(mode='stereo', model='stereo.pkl', baselines=True, hidden_size=64,
+                  n_stage=2, reid_weights=reid_weights)
+        gen = GenerateKitti(_args(**kw))
+        os.chdir(tmp_path / 'jax')
+        args = _args(**kw)
+        del args.disable_cuda
+        jgen = JaxGenerateKitti(args)
+        if set_reid:
+            set_reid(gen, jgen)
+        jgen.run()
+        ref = {m: _read_tree(os.path.join('data', 'kitti', m)) for m in STEREO_TREES}
+        os.chdir(tmp_path / 'ours')
+        gen.run()
+        ours = {m: _read_tree(os.path.join('data', 'kitti', m)) for m in STEREO_TREES}
+        return gen, jgen, ours, ref
+    finally:
+        os.chdir(old)
+
+
+def _assert_reid_trees_close(gen, ours, ref):
+    """The reid trees row by row; on a difference, the ReID feature distances
+    of each image (left x right, the association's cost) are printed, so a
+    row that a near-tie of the features decided shows it."""
+    try:
+        assert _assert_trees_close(ours, ref) > 10
+    except AssertionError:
+        from monoloco_tpu_torch.eval.reid_baseline import get_reid_features
+        for name in ours:
+            base = name[:-4]
+            boxes, *_, boxes_r = gen._load_image(base, True)
+            if not boxes_r:
+                continue
+            feats = get_reid_features(gen.reid_net, boxes, boxes_r,
+                                      os.path.join(gen.dir_images, base + '.png'),
+                                      os.path.join(gen.dir_images_r, base + '.png'))
+            print(name, 'reid distances (left x right):')
+            print(np.linalg.norm(feats[0][:, None] - feats[1][None], axis=2))
+        raise
+
+
+def test_baselines_are_refused(tmp_path):
+    """The name is kept from when the port refused the stereo baselines; they
+    run now. `--baselines --mode stereo` without ReID weights: the ResNet-50
+    with random weights at 32 x 16 (the JAX test's size), the JAX package's
+    `init_resnet50(PRNGKey(1))` carried into the port's net, against the JAX
+    package: the five trees row by row, the counters equal, and the
+    untrained-ReID warning."""
+    from monoloco_tpu.eval.reid_baseline import ReID as JaxReID
+    from monoloco_tpu_torch.eval.reid_baseline import ResNet50, params_from_jax
+
+    def set_reid(gen, jgen):
+        jgen.reid_net = JaxReID(height=32, width=16)
+        gen.reid_net.height, gen.reid_net.width = 32, 16
+        gen.reid_net.net = ResNet50(params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jgen.reid_net.params)))
+
+    with pytest.warns(RuntimeWarning, match='RANDOMLY INITIALIZED'):
+        gen, jgen, ours, ref = _stereo_baselines(tmp_path, None, set_reid)
+    for method in STEREO_TREES[:-1]:
+        assert _assert_trees_close(ours[method], ref[method]) > 10, method
+    _assert_reid_trees_close(gen, ours['reid'], ref['reid'])
+    assert dict(gen.cnt_disparity) == dict(jgen.cnt_disparity)
+    assert gen.cnt_no_stereo == jgen.cnt_no_stereo and not gen.reid_net.pretrained

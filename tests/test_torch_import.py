@@ -1,8 +1,9 @@
 """The torch port never imports jax (nor optax, which the JAX package's
 trainer checkpoints reference, nor orbax), and a json-only predict run and
-the KITTI eval path import neither matplotlib nor Pillow (the card's machine
-has no matplotlib and maybe no Pillow); cv2 is imported only by the webcam
-loop, when it runs.
+the KITTI eval path, the ReID baseline (its images decoded, cropped and
+resized by `utils/image.py`) and the device meshes import neither
+matplotlib nor Pillow (the card's machine has no matplotlib and maybe no
+Pillow); cv2 is imported only by the webcam loop, when it runs.
 
 This test process has jax loaded already (tests/conftest.py), so the check
 runs in a fresh interpreter: it imports every module of the port, runs the
@@ -15,7 +16,9 @@ one request over HTTP, writes a synthetic KITTI root with images, runs `eval
 tool (whose legs are interpreters of their own), `train --resume`,
 `train --hyp` (stacked), `prep --activity` and `eval --activity`, `eval
 --geometric`, `eval --variance` (as on a machine without matplotlib),
-`eval --generate --baselines` and a json-only `predict --webcam` on stub
+`eval --generate --baselines` (mono, and stereo with the tiny ReID), `eval
+--generate --dp_devices 2` (stereo, a gloo mesh of two processes) and a
+json-only `predict --webcam` on stub
 cv2 and openpifpaf, and then asserts that none of jax, jaxlib, optax,
 orbax, matplotlib and PIL is in sys.modules (nor tabulate, yaml or cv2
 after the imports: EvalKitti imports tabulate only to print its table,
@@ -170,6 +173,19 @@ _SCRIPT = textwrap.dedent("""
             gen, ev = run.main(['eval', '--generate', '--baselines', '--dir_ann', 'annotations',
                                 '--model', model, '--disable-cuda'])
             assert {'monoloco', 'geometric', 'monoloco_pp'} <= set(ev.methods)
+            # The stereo baselines: the tiny ReID on the crops the port decodes
+            # and resizes itself (no Pillow), then generation over a dp2 mesh.
+            from monoloco_tpu_torch.models import init_loco_params
+            params, bn = init_loco_params(0, 68, 10, 16, 1)
+            params['w_fin']['b'][0:3] += 15.0
+            save_checkpoint('stereo.pkl', params, bn)
+            stereo = ['--mode', 'stereo', '--dir_ann', 'annotations', '--model', 'stereo.pkl',
+                      '--hidden_size', '16', '--n_stage', '1', '--disable-cuda']
+            gen, ev = run.main(['eval', '--generate', '--baselines', *stereo, '--reid_weights',
+                                os.path.join(here, 'fixture_tiny_reid.pkl')])
+            assert {'pose', 'reid', 'monstereo'} <= set(ev.methods) and gen.reid_net.pretrained
+            gen, ev = run.main(['eval', '--generate', *stereo, '--dp_devices', '2'])
+            assert gen.model.mesh.dp == 2
             # predict --webcam, json only, on stub cv2 and openpifpaf.
             import types
             import numpy as np
@@ -249,7 +265,10 @@ def test_port_imports_and_runs_without_jax():
             'monoloco_tpu_torch.eval.geom_baseline', 'monoloco_tpu_torch.eval.eval_variance',
             'monoloco_tpu_torch.eval.stereo_baselines', 'monoloco_tpu_torch.eval.eval_activity',
             'monoloco_tpu_torch.visuals.figures', 'monoloco_tpu_torch.visuals.plot_3d_box',
-            'monoloco_tpu_torch.visuals.webcam'} <= names
+            'monoloco_tpu_torch.visuals.webcam', 'monoloco_tpu_torch.eval.reid_baseline',
+            'monoloco_tpu_torch.utils.image', 'monoloco_tpu_torch.parallel',
+            'monoloco_tpu_torch.parallel.mesh', 'monoloco_tpu_torch.parallel.launch',
+            'monoloco_tpu_torch.parallel.dryrun'} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

@@ -430,9 +430,27 @@ def test_main_needs_a_card(monkeypatch):
     assert not served
 
 
-def test_main_refuses_a_mesh():
-    with pytest.raises(SystemExit, match='Queue 1 item 9'):
-        serve.main(['--model', 'unused.pkl', '--dp_devices', '2'])
+def test_main_refuses_a_mesh(monkeypatch):
+    """The name is kept from when the port refused a mesh: `--dp_devices`
+    serves now. A one-rank mesh (gloo, in this process) warms up and
+    serves; tests/test_torch_parallel.py serves over two ranks."""
+    import signal
+    served = []
+
+    def serve_briefly(self):
+        # The loop runs on a thread, so that main's shutdown finds it.
+        served.append(self)
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    monkeypatch.setattr(Server, 'serve_forever', serve_briefly)
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        serve.main(['--model', 'tests/goldens/byte_compat/model_tpu.pkl', '--port', '0',
+                    '--dp_devices', '1', '--disable-cuda'])
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    assert len(served) == 1 and served[0].net.mesh.dp == 1
+    assert served[0].net.n_dispatches == 1
 
 
 # --- parity with the JAX server ---------------------------------------------

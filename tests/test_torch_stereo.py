@@ -351,16 +351,25 @@ def test_loco_takes_the_jax_callers_keywords(monkeypatch, checkpoints, caller):
 
 
 def test_loco_still_refuses_mc_dropout_and_meshes():
-    """Meshes and unknown modes are refused. MC dropout is served since it
-    was ported: on the stereo net it leaves epi at zeros, as the JAX engine
-    does (`engine.py:404`)."""
+    """The name is kept from when meshes were refused: unknown modes are
+    refused; a mesh computes what no mesh computes (here one rank, gloo, in
+    this process; tests/test_torch_parallel.py holds two). MC dropout is
+    served since it was ported: on the stereo net it leaves epi at zeros,
+    as the JAX engine does (`engine.py:404`)."""
     model = _jax_tree(jax.random.PRNGKey(1), 68, 10, 64, 2)
     net = Loco(model, mode='stereo', n_dropout=2, device='cpu')
     kps = _keypoints(3, seed=1)
     assert list(net.forward(kps, KK, keypoints_r=kps)['epi']) == [0.0] * 3
     assert net.forward_batch([kps], [KK], [kps])[0]['epi'] == [0.0] * 3
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        Loco(model, mode='stereo', mesh=object(), device='cpu')
+    from monoloco_tpu_torch.parallel import launch
+
+    def on_mesh(mesh):
+        return Loco(model, mode='stereo', mesh=mesh).forward_batch([kps], [KK], [kps])[0]
+
+    ours = launch(on_mesh, 1, device_type='cpu', timeout=60)
+    ref = Loco(model, mode='stereo', device='cpu').forward_batch([kps], [KK], [kps])[0]
+    assert np.array_equal(ours['xyzd'], ref['xyzd'])
+    assert np.array_equal(ours['aux_idx'], ref['aux_idx'])
     with pytest.raises(ValueError, match='mode'):
         Loco(model, mode='keypoints', device='cpu')
 

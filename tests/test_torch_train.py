@@ -475,8 +475,17 @@ def test_cli_prep_then_train_then_eval_nuscenes(tmp_path, monkeypatch):
 ])
 def test_refused_train_options(extra, match, joints_dir):
     """orbax paths (orbax imports jax; the message names the item it was
-    moved from) and meshes are refused; `--resume` of a pickle runs
-    (tests/test_torch_resume.py)."""
+    moved from) are refused; `--resume` of a pickle runs
+    (tests/test_torch_resume.py). The mesh cases keep their ids from when
+    the port refused them: they train on a gloo mesh now
+    (tests/test_torch_parallel.py holds what they compute)."""
+    if match == 'item 9':
+        trainer = run.main(['train', '--joints', str(joints_dir / 'mono.json'), '--disable-cuda',
+                            '--epochs', '1', '--hidden_size', '32', '--n_stage', '2',
+                            '--no_save'] + extra)
+        assert (trainer.mesh.dp, trainer.mesh.tp) == ((2, 1) if '--dp_devices' in extra
+                                                      else (1, 2))
+        return
     with pytest.raises(SystemExit) as exc:
         run.main(['train', '--joints', str(joints_dir / 'mono.json'), '--disable-cuda']
                  + extra)
