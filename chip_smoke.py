@@ -213,8 +213,16 @@ to the CPU):
     mesh), `serve --dp_devices N` (8 requests within 1e-5 (1 + |ref|) of
     the meshless engine), `dryrun_multichip(N)` at flagship shapes; with
     four cards or more also `run train` at dp2 x tp2.
+ 32. Predict running OpenPifPaf: phase 4's 64 images copied without their
+    pifpaf JSON, the stub of the library (tests/stubs/openpifpaf, the
+    surface predict calls) on sys.path yielding the fixture's
+    annotations; `run predict` at float32 and int8 against the JSON-fed
+    run of each on phase 4's images: the `.monoloco.json` files equal
+    byte for byte, OpenPifPaf's net configured for the card, dyn8 launched
+    at int8, and the `--json-output` files equal the fixture's
+    annotations; each run's wall and the phase's on lines of their own.
 The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12, 13, 16, 17, 18, 20, 26-28, 30 and 31, each with every count set to 0
+8, 9, 11, 12, 13, 16, 17, 18, 20, 26-28 and 30-32, each with every count set to 0
 just before it; phases 20, 26 and 27 from their legs' own processes); a
 count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
@@ -3071,6 +3079,78 @@ def run_training_and_verticals(tmp, prep_root, joints, main_launches):
     print(f"phases 24-28: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def phase_pifpaf(tmp, smi):
+    """Predict with the poses from OpenPifPaf (the repo's stub of it) on
+    phase 4's images without their JSON, against the JSON-fed runs.
+    Returns the main-path launches."""
+    banner(f"== phase 32: predict running OpenPifPaf (tests/stubs/openpifpaf), "
+           f"{PREDICT_IMAGES} images", flush=True)
+    t_phase = time.perf_counter()
+    from monoloco_tpu_torch import predict
+    model, fed_dir = _main_model(tmp), os.path.join(tmp, 'images')
+    bare_dir = os.path.join(tmp, 'images_no_json')
+    os.makedirs(bare_dir)
+    for name in sorted(os.listdir(fed_dir)):
+        if name.endswith('.png'):
+            shutil.copy(os.path.join(fed_dir, name), os.path.join(bare_dir, name))
+    with open(os.path.join(REPO, 'tests', 'fixture_002282.pifpaf.json')) as f:
+        fixture = json.load(f)
+    stubs = os.path.join(REPO, 'tests', 'stubs')
+    sys.path.insert(0, stubs)
+    counts = {'dyn8_mlp': 0}
+    try:
+        import openpifpaf
+        check(openpifpaf.__file__.startswith(stubs), f"openpifpaf from {openpifpaf.__file__}")
+        openpifpaf.reset()
+        openpifpaf.set_annotations(fixture)
+        predict._PIFPAF_PREDICTOR.clear()
+        for precision in ('float32', 'int8'):
+            t0 = time.perf_counter()
+            _, n_fed = _run_predict(precision, model, fed_dir,
+                                    os.path.join(tmp, f'pp_fed_{precision}'))
+            fed_wall = time.perf_counter() - t0
+            out = os.path.join(tmp, f'pp_{precision}')
+            t0 = time.perf_counter()
+            net, n_launch = _run_predict(precision, model, bare_dir, out,
+                                         extra=('--json-output',))
+            wall = time.perf_counter() - t0
+            print(f"phase 32 {precision}: {wall:.2f} s wall through OpenPifPaf "
+                  f"({PREDICT_IMAGES} images), {fed_wall:.2f} s JSON-fed, on {smi}", flush=True)
+            print(json.dumps({'phase': 32, 'precision': precision, 'images': PREDICT_IMAGES,
+                              'wall_s': wall, 'wall_s_json_fed': fed_wall,
+                              'dispatches': net.n_dispatches, 'dyn8_launches': n_launch,
+                              'dyn8_launches_json_fed': n_fed}), flush=True)
+            configured = [a for t, a in openpifpaf.CONFIGURE_CALLS if t == 'Predictor']
+            check(configured and all(str(a.device) == 'cuda' for a in configured),
+                  "OpenPifPaf's net was not configured for the card")
+            check(n_launch == n_fed and (n_launch > 0) == (precision == 'int8'),
+                  f"{precision}: dyn8 launches {n_launch}, JSON-fed {n_fed}")
+            counts['dyn8_mlp'] += n_launch
+            names = sorted(f for f in os.listdir(out) if f.endswith('.monoloco.json'))
+            check(len(names) == PREDICT_IMAGES, f"{len(names)} .monoloco.json files in {out}")
+            for name in names:
+                with open(os.path.join(out, name), 'rb') as f, \
+                        open(os.path.join(tmp, f'pp_fed_{precision}', name), 'rb') as g:
+                    check(f.read() == g.read(), f"{precision} {name}: OpenPifPaf-fed output "
+                                                f"differs from the JSON-fed one")
+            dumped = sorted(f for f in os.listdir(out) if f.endswith('.predictions.json'))
+            check(len(dumped) == PREDICT_IMAGES, f"{len(dumped)} --json-output files")
+            for name in dumped:
+                with open(os.path.join(out, name)) as f:
+                    check(json.load(f) == fixture, f"{name} is not OpenPifPaf's annotations")
+        check(openpifpaf.PREDICTOR_INSTANTIATIONS == [None],
+              f"Predictors made: {openpifpaf.PREDICTOR_INSTANTIATIONS}")
+        print(f"phase 32: {2 * PREDICT_IMAGES} images through OpenPifPaf bit-equal to the "
+              f"JSON-fed runs; dyn8 launches {counts['dyn8_mlp']}", flush=True)
+        print(f"phase 32: {time.perf_counter() - t_phase:.2f} s wall on {smi}", flush=True)
+    finally:
+        sys.path.remove(stubs)
+        predict._PIFPAF_PREDICTOR.clear()
+        for name in [m for m in sys.modules if m == 'openpifpaf' or m.startswith('openpifpaf.')]:
+            del sys.modules[name]
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -3144,6 +3224,7 @@ def main():
         for key, n in counts.items():
             main_launches[key] = main_launches.get(key, 0) + n
     print(f"phases 29-31: {time.perf_counter() - t0:.1f} s", flush=True)
+    main_launches['dyn8_mlp'] += phase_pifpaf(main_dir.name, smi)['dyn8_mlp']
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']

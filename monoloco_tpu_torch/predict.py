@@ -1,5 +1,4 @@
-"""Prediction: images + precomputed pifpaf poses -> `.monoloco.json` and
-figures.
+"""Prediction: images + pifpaf poses -> `.monoloco.json` and figures.
 
 Counterpart of `monoloco_tpu/predict.py` for `--mode mono`, `--mode stereo`
 and `--mode keypoints`. Per image (per left/right pair in stereo): load the
@@ -20,13 +19,21 @@ The image size comes from the PNG or JPEG header (stdlib). matplotlib and
 Pillow are imported only when a figure is drawn: a json-only run needs
 neither, and a run that asks for a figure without them exits before any net
 is built. `--profile DIR` writes a torch.profiler Chrome trace of the run
-into DIR. `--webcam` and running OpenPifPaf itself are not ported and are
-refused with a message.
+into DIR.
+
+The poses of an image come from a pifpaf JSON beside it (`<image>.pifpaf.json`,
+`<image>.predictions.json`) or in `--json_dir`; without one, OpenPifPaf runs
+on the image when it is installed (`run_pifpaf`: one Predictor per
+`--checkpoint`, its decoder flags forwarded through OpenPifPaf's own
+`configure` hooks, its net on the card unless `--disable-cuda`), and
+without either the run stops naming the image. `--webcam` runs in
+`visuals/webcam.py`.
 """
 
 import glob
 import importlib
 import json
+import logging
 import os
 import struct
 import time
@@ -37,6 +44,8 @@ import torch
 
 from .network import Loco, factory_for_gt, load_calibration, preprocess_pifpaf
 from .ops import launches
+
+LOG = logging.getLogger(__name__)
 
 CHUNK = 64
 FIGURE_TYPES = ('front', 'bird', 'multi')
@@ -92,21 +101,66 @@ def find_pifpaf_json(image_path, json_dir=None):
     return None
 
 
+def _pifpaf_available():
+    try:
+        import openpifpaf  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+_PIFPAF_PREDICTOR = {}
+
+
+def run_pifpaf(image_paths, checkpoint=None, batch_size=1, args=None):
+    """Run OpenPifPaf on images; yields (path, annotations_json) per image.
+
+    The Predictor (a full CNN checkpoint load) is made once per checkpoint.
+    With `args`, `force_complete_pose` defaults to true (the net needs all
+    17 keypoints), `device` to the card unless `disable_cuda`, and the
+    namespace goes to `openpifpaf.decoder.configure` and
+    `openpifpaf.Predictor.configure`; a hook that fails on a partial
+    namespace is skipped with a warning, as in the JAX package."""
+    import openpifpaf
+    if args is not None:
+        if not hasattr(args, 'force_complete_pose'):
+            args.force_complete_pose = True
+        if not hasattr(args, 'device'):
+            on_card = torch.cuda.is_available() and not getattr(args, 'disable_cuda', False)
+            args.device = torch.device('cuda' if on_card else 'cpu')
+        for mod in (getattr(openpifpaf, 'decoder', None),
+                    getattr(openpifpaf, 'Predictor', None)):
+            try:
+                mod.configure(args)
+            except Exception as exc:  # partial args namespace
+                LOG.warning("openpifpaf %s.configure skipped (%s) — decoder flags may not "
+                            "take effect", getattr(mod, '__name__', mod), exc)
+    if checkpoint not in _PIFPAF_PREDICTOR:
+        _PIFPAF_PREDICTOR[checkpoint] = openpifpaf.Predictor(checkpoint=checkpoint)
+    predictor = _PIFPAF_PREDICTOR[checkpoint]
+    for pred, _, meta in predictor.images(image_paths, batch_size=batch_size):
+        yield meta['file_name'], [ann.json_data() for ann in pred]
+
+
 def load_annotations(image_path, args):
+    """The pifpaf annotations of an image: its JSON, else OpenPifPaf's."""
     path = find_pifpaf_json(image_path, getattr(args, 'json_dir', None))
-    if path is None:
-        raise FileNotFoundError(
-            f"No pifpaf annotations for {image_path}: provide <image>.pifpaf.json "
-            f"(or --json_dir); running OpenPifPaf is not ported to the torch "
-            f"package yet")
-    with open(path) as f:
-        anns = json.load(f)
-    # the loose '<stem>.json' candidate can hit an unrelated file
-    if not isinstance(anns, list) or any(
-            not isinstance(a, dict) or 'keypoints' not in a for a in anns):
-        raise ValueError(f"{path} does not look like pifpaf predictions "
-                         "(expected a list of annotation dicts with 'keypoints')")
-    return anns
+    if path is not None:
+        with open(path) as f:
+            anns = json.load(f)
+        # the loose '<stem>.json' candidate can hit an unrelated file
+        if not isinstance(anns, list) or any(
+                not isinstance(a, dict) or 'keypoints' not in a for a in anns):
+            raise ValueError(f"{path} does not look like pifpaf predictions "
+                             "(expected a list of annotation dicts with 'keypoints')")
+        return anns
+    if _pifpaf_available():
+        for _, anns in run_pifpaf([image_path], checkpoint=getattr(args, 'checkpoint', None),
+                                  args=args):
+            return anns
+    raise FileNotFoundError(
+        f"No pifpaf annotations for {image_path}: provide <image>.pifpaf.json "
+        f"(or --json_dir), or install openpifpaf")
 
 
 def draws_figures(args):

@@ -6,8 +6,9 @@ port unchanged, plus `--disable-cuda` (without it predict, train and `eval
 
 predict: the pifpaf passthroughs (`--long-edge`, `--white-overlay`,
 `--font-size`, `--monocolor-connections`, `--instance-threshold`,
-`--seed-threshold`, `--precise-rescaling`, `--decoder-workers`) are
-accepted and inert: the port reads precomputed pifpaf JSON. `--webcam`
+`--seed-threshold`, `--precise-rescaling`, `--decoder-workers`) go to
+OpenPifPaf's `configure` hooks when an image has no pifpaf JSON and
+OpenPifPaf runs on it (`predict.run_pifpaf`, with `--checkpoint`). `--webcam`
 runs the live loop (`visuals/webcam.py`: cv2 capture from `--camera`,
 OpenPifPaf with `--checkpoint`, the net on the card); without cv2 or
 openpifpaf it exits naming the missing one.
@@ -77,7 +78,8 @@ def cli(argv=None):
     add = predict_parser.add_argument
     add('images', nargs='*', help='input images')
     add('--glob', help='glob expression for input images')
-    add('--checkpoint', help='pifpaf model (used by --webcam only)')
+    add('--checkpoint', help='pifpaf model, for the images without a pifpaf JSON and '
+        'for --webcam')
     add('--json_dir', help='directory of precomputed pifpaf json files')
     add('-o', '--output-directory', dest='output_directory', help='Output directory')
     add('--output_types', nargs='+', default=[],

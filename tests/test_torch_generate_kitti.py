@@ -11,11 +11,14 @@ JAX package's init, its output biases set ahead of the camera, saved with
 the JAX `save_checkpoint`.
 
 Tolerances: the same files, the same rows in the same order, the text
-columns (type, truncation, occlusion) and boxes equal; every other float
+columns (type, truncation, occlusion) and boxes equal; x, y and z within
+1e-5 (1 + d), d the row's distance (`_xyz_close`); every other float
 within 1e-5 (1e-5 relative too, as the port's engine tests hold decoded
 outputs: both sides print `%f`, so a last-ulp f32 difference can move the
-sixth decimal), stereo x, y, z within 1e-4, conf within 1e-5 relative
-(or the one unit of the sixth decimal that `%f` can flip).
+sixth decimal), conf within 1e-5 relative (or the one unit of the sixth
+decimal that `%f` can flip). Both sides decode x, y and z with the same f32
+operations; what parts them is the net's f32 sums, whose order each
+framework picks for the CPU it runs on.
 MC dropout: given JAX's keep-masks and uniforms, epi within 1e-4 relative;
 on the port's own generators, JAX's epi inside the range of 40 seeds of the
 port widened by 10% of it on each side (the rule of tests/test_torch_mc.py,
@@ -54,7 +57,6 @@ N_DROPOUT = 5
 N_SEEDS = 40
 TOL = 1e-5
 PRINT_ULP = 1e-6           # one unit of the sixth decimal `%f` writes
-STEREO_XYZ_TOL = 1e-4
 COLS_XYZ = slice(11, 14)
 COL_CONF, COL_EPI = 15, 17
 BUDGET = 0.02
@@ -125,7 +127,17 @@ def _generate(mode, model, **kw):
     return gen, _read_tree(_net_dir(mode))
 
 
-def _assert_trees_close(ours, ref, xyz_tol=TOL, skip=()):
+def _xyz_close(a, b, tol):
+    """x, y and z of a row within tol * (1 + d), d the distance of the
+    reference row: each comes from the net's (theta, psi, r) outputs through
+    r sin(psi) cos(theta), r cos(psi) and sqrt(d^2 - x^2 - y^2), so an f32
+    error in the outputs moves each coordinate by an amount that grows with
+    r (and d), whatever the coordinate's own size: y, the height of a
+    pedestrian's centre, is a few cm where d is tens of metres."""
+    return bool(np.all(np.abs(a - b) <= tol * (1 + np.sqrt(np.sum(b ** 2)))))
+
+
+def _assert_trees_close(ours, ref, skip=()):
     """Same files, rows, order and text columns; floats by the rules of the
     module docstring. Returns the number of rows."""
     assert list(ours) == list(ref)
@@ -137,14 +149,15 @@ def _assert_trees_close(ours, ref, xyz_tol=TOL, skip=()):
             assert row[:3] == row_ref[:3] and row[4:8] == row_ref[4:8], name
             a = np.array(row[3:], float)
             b = np.array(row_ref[3:], float)
+            xyz = slice(COLS_XYZ.start - 3, COLS_XYZ.stop - 3)
+            assert _xyz_close(a[xyz], b[xyz], TOL), (name, a[xyz], b[xyz])
             for col in range(3, 18):
-                if col in skip:
+                if col in skip or COLS_XYZ.start <= col < COLS_XYZ.stop:
                     continue
                 if col == COL_CONF:
                     np.testing.assert_allclose(a[col - 3], b[col - 3], rtol=TOL, atol=PRINT_ULP)
                     continue
-                tol = xyz_tol if COLS_XYZ.start <= col < COLS_XYZ.stop else TOL
-                np.testing.assert_allclose(a[col - 3], b[col - 3], rtol=tol, atol=tol,
+                np.testing.assert_allclose(a[col - 3], b[col - 3], rtol=TOL, atol=TOL,
                                            err_msg=f'{name} column {col}')
             n_rows += 1
     return n_rows
@@ -159,9 +172,26 @@ def test_mono_tree_matches_jax(root, dataset):
 def test_stereo_tree_matches_jax(root, dataset):
     gen, ours = _generate('stereo', dataset['stereo_model'])
     assert gen.model.net == 'monstereo' and gen.model.n_dispatches == 1
-    assert _assert_trees_close(ours, dataset['jax']['stereo'], xyz_tol=STEREO_XYZ_TOL) > 50
+    assert _assert_trees_close(ours, dataset['jax']['stereo']) > 50
     assert {b + '.txt': len(idx) for b, idx in gen.aux_idx.items()} == \
         {name: len(rows) for name, rows in ours.items()}
+
+
+@pytest.mark.parametrize('fault', ['none', 'distance'])
+def test_xyz_rule_catches_a_scaled_distance(dataset, fault):
+    """The distance-relative xyz rule passes the JAX mono tree against
+    itself and fails it with one row's x, y and z scaled by 1 + 1e-4."""
+    ref = dataset['jax']['mono']
+    ours = {name: [list(row) for row in rows] for name, rows in ref.items()}
+    if fault == 'distance':
+        name = next(n for n in ours if ours[n])
+        row = ours[name][0]
+        row[COLS_XYZ] = ['%f' % (float(v) * (1 + 1e-4)) for v in row[COLS_XYZ]]
+    if fault == 'none':
+        assert _assert_trees_close(ours, ref) > 50
+    else:
+        with pytest.raises(AssertionError):
+            _assert_trees_close(ours, ref)
 
 
 def test_chunks_are_one_dispatch_each(root, dataset):

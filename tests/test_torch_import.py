@@ -20,7 +20,8 @@ tool (whose legs are interpreters of their own), `train --resume`,
 --generate --dp_devices 2` (stereo, a gloo mesh of two processes) and a
 json-only `predict --webcam` on stub
 cv2 and openpifpaf, and then asserts that none of jax, jaxlib, optax,
-orbax, matplotlib and PIL is in sys.modules (nor tabulate, yaml or cv2
+orbax, matplotlib, PIL and openpifpaf is in sys.modules (nor tabulate,
+yaml or cv2
 after the imports: EvalKitti imports tabulate only to print its table,
 where there is one).
 """
@@ -228,7 +229,7 @@ _SCRIPT = textwrap.dedent("""
     print('NAMES', ' '.join(names))
     leaked = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'matplotlib',
-                                           'PIL', 'cv2'))
+                                           'PIL', 'cv2', 'openpifpaf'))
     print('MODULES', len(names), 'LEAKED', leaked)
     assert not leaked, leaked
 """)

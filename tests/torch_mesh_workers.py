@@ -2,10 +2,13 @@
 spawned processes, which import these by name: this module imports torch
 and the port only (no jax), so that they start quickly."""
 
+import types
+
 import numpy as np
 import torch
 
 from monoloco_tpu_torch.train import Trainer
+from monoloco_tpu_torch.train import trainer as trainer_module
 
 # The biases of the layers that feed a BatchNorm: their gradient is zero in
 # exact arithmetic (BN removes the batch mean) and pure rounding in floats,
@@ -55,6 +58,46 @@ def train(mesh, args, init=None, perms=None, zero_pre_bn=False):
             for phase in ('train', 'val')}
     return {'val': val, 'logs': logs, 'best_epoch': trainer.best_epoch,
             'n_steps': trainer.n_steps}
+
+
+def _leaves_with_paths(tree, path=()):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _leaves_with_paths(tree[key], path + (key,))
+        else:
+            yield path + (key,), tree[key]
+
+
+def step(mesh, args, x, y, init=None, masks=None, all_reduce=True):
+    """One step of a Trainer from the weights `init` (its own init when
+    None) on the global batch (x, y) with the global batch's keep-masks
+    `masks`. Rank 0 (or a lone run) returns the loss, the gradients' global
+    norm, the gradients before clipping and the weights after the step, the
+    last two as {path: array}. all_reduce=False leaves out the all-reduce
+    of the gradients over the data ranks: a seeded fault."""
+    args.mesh = mesh
+    trainer = MeshTestTrainer(args, init)
+    grads = {}
+    optimizer_step = trainer.optimizer.step
+
+    def recording_step(*a, **kw):
+        for path, t in _leaves_with_paths(trainer.params):
+            grads[path] = t.grad.detach().cpu().numpy().copy()
+        return optimizer_step(*a, **kw)
+    trainer.optimizer.step = recording_step
+    if not all_reduce:
+        trainer_module.dist = types.SimpleNamespace(all_reduce=lambda *a, **kw: None)
+    try:
+        loss, gnorm, _ = trainer.step(torch.as_tensor(x, device=trainer.device),
+                                      torch.as_tensor(y, device=trainer.device), masks=masks)
+    finally:
+        trainer_module.dist = torch.distributed
+    gnorm = float(gnorm)
+    unclip = 1.0 / min(1.0, trainer_module.GRAD_CLIP / (gnorm + 1e-6))
+    return {'loss': float(loss), 'gnorm': gnorm,
+            'grads': {path: g * unclip for path, g in grads.items()},
+            'params': {path: t.detach().cpu().numpy()
+                       for path, t in _leaves_with_paths(trainer.params)}}
 
 
 def fail_on_rank_1(mesh):
