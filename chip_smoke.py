@@ -230,10 +230,27 @@ to the CPU):
     launch at int8; `project_points` and `xyz_from_distance` on the card
     against the CPU at 131072 rows, within 1e-6 of the largest output; the
     phase's wall on a line of its own.
-The launch counts of the report are those of the main-path runs (phases 4,
-8, 9, 11, 12, 13, 16, 17, 18, 20, 26-28 and 30-33, each with every count set to 0
-just before it; phases 20, 26 and 27 from their legs' own processes); a
-count is one
+ 34. The drivers ported from the JAX package's tools/, each in an
+    interpreter of its own with its own time limit (any non-zero exit
+    fails; the phase fails past its 240 s budget): `tools.bench_variance 3`
+    (the bench in 3 fresh processes, no run failed),
+    `tools.bench_int8_roofline` (its four legs and summary, dyn8 launched),
+    `tools.bench_generate_full_scale ROOT --mode mono` on phase 20's 1000
+    easy val scenes (a ROOT that holds a dataset is reused: one txt an
+    image, 16 dispatches), `tools.bench_cli_phases`,
+    `bench_hyp_search.run_core(epochs=10)` (24 trials stacked and serial),
+    `tools.bench_mesh_scaling --widths 1` (bs 512, hidden 1024, 3 stages),
+    and `tools.train_tiny_reid` at its
+    240 steps on the card, whose weights then associate the left and right
+    crops of tests/test_reid_synthetic.py's four scenes on the card with
+    accuracy >= 0.8 and no worse than random ResNet-50 features.
+Every in-process run of the CLI's entry point (`run.main`) has its stdout,
+stderr and logging kept back, and one line printed in their place; each
+phase's JSON records go through `record`. The launch counts of the report
+are those of the main-path runs (phases 4, 8, 9, 11, 12, 13, 16, 17, 18,
+20, 26-28 and 30-33, each with every count set to 0 just before it; phases
+20, 26 and 27 from their legs' own processes; phase 34's drivers count in
+their own processes and report there); a count is one
 call of the kernel's entry, which makes 2S + 4 CUDA launches for K1-bf16,
 2S + 5 for K5, K1-f32 and K4, 4S + 7 for dyn8 and 8 for K6. Each report
 entry has its time, its plain version's, the bound (the larger of its
@@ -243,14 +260,20 @@ the same weight type where there is one (for K6 the `torch.matmul` chain).
 K1-f32's operations are counted three times at the TF32
 tensor-core peak: the least time in which this card computes an
 f32-accurate product is 3xTF32 on the tensor cores, not one pass on the
-CUDA cores (67 TFLOP/s). The line before the last is the kernel report
-(JSON); the last line is {"ok": true, "device": {...}}.
+CUDA cores (67 TFLOP/s). The last four lines: the card's name and power
+limit (nvidia-smi); the phases line, {"phases": [...]}, at most 8 KB, with
+each phase's number, wall (from its banner to the next), main-path
+launches by kernel and count of JSON records; the kernel report (JSON);
+and {"ok": true, "device": {...}}.
 """
 
 import argparse
 import contextlib
+import io
 import json
+import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -336,6 +359,17 @@ STEREO_SMOKE_SCENES = 200       # phase 27: train and val scenes each
 WEBCAM_FRAMES = 8          # phase 28
 GEOMETRY_ROWS = 131072     # phase 33: points projected and rays scaled, card vs CPU
 GEOMETRY_REL = 1e-6        # phase 33: of the largest output (the JAX package pins HIGHEST)
+DRIVERS_BUDGET_S = 240     # phase 34, the drivers in all (checked)
+VARIANCE_RUNS = 3          # phase 34: bench_variance's fresh-process bench runs
+HYP_CORE_EPOCHS = 10       # phase 34: bench_hyp_search core, cut from 150
+REID_MIN_ACC = 0.8         # phase 34: the card-trained tiny ReID's L->R association accuracy
+# Phase 34: tests/test_reid_synthetic.py's four stereo scenes, (x, z, ry) a person.
+REID_PEOPLE = (
+    ((-3.5, 8.0, 0.3), (0.0, 11.0, -0.5), (2.5, 15.0, 0.1), (-1.0, 20.0, 0.8), (4.0, 25.0, -0.2)),
+    ((-2.0, 7.0, 0.0), (1.5, 9.0, 0.4), (3.0, 13.0, -0.3), (-4.0, 17.0, 0.6), (0.5, 22.0, -0.8)),
+    ((-1.5, 6.0, 0.2), (2.0, 10.0, -0.1), (-3.0, 12.0, 0.5), (4.5, 18.0, -0.6), (1.0, 24.0, 0.3)),
+    ((0.0, 8.5, -0.4), (-2.5, 10.5, 0.7), (3.5, 14.0, 0.0), (-0.5, 19.0, -0.2), (2.0, 26.0, 0.9)),
+)
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense) for the bound.
 PEAK_OPS = {'bf16': 989e12, 'tf32': 495e12, 'int8': 1979e12}
@@ -347,11 +381,107 @@ GOLD = os.path.join(REPO, 'tests', 'goldens', 'byte_compat')
 
 
 _T0 = time.perf_counter()
+# The summary line before the kernel line: each phase's start (in banner
+# order), its main-path launches by kernel and its JSON records, so that a
+# caller who keeps only the last few KB of the output still has them.
+_PHASE_STARTS = []
+_PHASE_LAUNCHES = {}
+_PHASE_RECORDS = {}
+SUMMARY_MAX_BYTES = 8192
 
 
 def banner(text, **_):
-    """A phase's first line, with the seconds since the script started."""
-    print(f"[{time.perf_counter() - _T0:7.1f} s] {text}", flush=True)
+    """A phase's first line, with the seconds since the script started; a
+    line '== phase N: ...' starts phase N's entry of the summary line."""
+    now = time.perf_counter()
+    match = re.match(r'== phase (\w+):', text)
+    if match:
+        _PHASE_STARTS.append((match.group(1), now))
+    print(f"[{now - _T0:7.1f} s] {text}", flush=True)
+
+
+def record(rec):
+    """Print a phase's JSON record on a line of its own, and count it in
+    the phase's entry of the summary line."""
+    print(json.dumps(rec), flush=True)
+    key = str(rec['phase'])
+    _PHASE_RECORDS[key] = _PHASE_RECORDS.get(key, 0) + 1
+
+
+def tally(main_launches, phase, counts):
+    """Add a phase's main-path launches to `main_launches` and to the
+    phase's entry of the summary line."""
+    own = _PHASE_LAUNCHES.setdefault(str(phase), {})
+    for key, n in counts.items():
+        if n:
+            main_launches[key] = main_launches.get(key, 0) + n
+            own[key] = own.get(key, 0) + n
+
+
+def phases_line():
+    """{"phases": [{"phase", "wall_s", "launches", "records"}, ...]}: each
+    phase's wall runs from its banner to the next one (the last to now),
+    summed over a phase's banners (phase 22 has two)."""
+    now = time.perf_counter()
+    walls = {}
+    for i, (key, t0) in enumerate(_PHASE_STARTS):
+        t1 = _PHASE_STARTS[i + 1][1] if i + 1 < len(_PHASE_STARTS) else now
+        walls[key] = walls.get(key, 0.0) + t1 - t0
+    entries = [{'phase': int(key) if key.isdigit() else key, 'wall_s': round(wall, 2),
+                'launches': _PHASE_LAUNCHES.get(key, {}), 'records': _PHASE_RECORDS.get(key, 0)}
+               for key, wall in walls.items()]
+    line = json.dumps({'phases': entries}, separators=(',', ':'))
+    check(len(line) <= SUMMARY_MAX_BYTES, f"the phases line has {len(line)} bytes")
+    return line
+
+
+def _stream_handlers():
+    """The logging handlers that hold an open stream (not a file), once each;
+    the last-resort handler writes to sys.stderr as it is at the time."""
+    loggers = [logging.getLogger()] + [lg for lg in logging.Logger.manager.loggerDict.values()
+                                       if isinstance(lg, logging.Logger)]
+    seen = {}
+    for lg in loggers:
+        for h in lg.handlers:
+            if type(h) is logging.StreamHandler and not getattr(h.stream, 'closed', False):
+                seen[id(h)] = h
+    return list(seen.values())
+
+
+@contextlib.contextmanager
+def _captured(label):
+    """Keep the block's stdout, stderr and logging in a buffer and print one
+    line in their place (and the buffer's tail when the block raises or
+    exits, as the CLI's refusals and argparse do through SystemExit): an
+    image's "saved as" lines and INFO logs would otherwise fill the end of
+    the output, which may be all a caller keeps of it."""
+    buf = io.StringIO()
+    err = sys.stderr
+    swapped = [(h, h.setStream(buf)) for h in _stream_handlers()]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            yield
+    except (Exception, SystemExit):
+        print(buf.getvalue()[-4000:], flush=True)
+        raise
+    finally:
+        for h, stream in swapped:
+            h.setStream(stream)
+        for h in _stream_handlers():          # handlers made inside the block
+            if h.stream is buf:
+                h.setStream(err)
+        text = buf.getvalue()
+        print(f"  [{label}: {text.count(chr(10))} lines ({len(text)} bytes) of output kept "
+              f"back, {time.perf_counter() - t0:.2f} s]", flush=True)
+
+
+def _cli(argv):
+    """`python -m monoloco_tpu_torch.run` in this process: run.main(argv),
+    its output kept back (`_captured`)."""
+    from monoloco_tpu_torch import run
+    with _captured(f"run {' '.join(argv[:2])}"):
+        return run.main(argv)
 
 
 def fail(msg):
@@ -494,13 +624,12 @@ def _zero_launches():
 def _run_predict(precision, model, img_dir, out_dir, mode='mono', extra=()):
     """The predict CLI over img_dir's PNGs, with every launch count set to 0
     just before; returns (the engine, the dyn8 launches of the run)."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.ops import launches
     os.environ['MONOLOCO_TPU_PRECISION'] = precision
     _zero_launches()
-    net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', mode,
-                    '--model', model, '--calibration', 'kitti',
-                    '--output_types', 'json', '-o', out_dir, *extra])
+    net = _cli(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode', mode,
+                '--model', model, '--calibration', 'kitti',
+                '--output_types', 'json', '-o', out_dir, *extra])
     torch.cuda.synchronize()
     return net, launches['dyn8_mlp']
 
@@ -1389,7 +1518,7 @@ def phase_precisions(tmp, f32_dicts, f32_epi, dyn8):
 def phase_keypoints_profile(tmp):
     """--mode keypoints builds no engine and launches nothing; a float32
     run under --profile gives the device's busy share of predict."""
-    from monoloco_tpu_torch import predict, run
+    from monoloco_tpu_torch import predict
     from monoloco_tpu_torch.ops import launches
     banner("== phase 14: --mode keypoints, and predict under --profile", flush=True)
     img_dir = os.path.join(tmp, 'images')
@@ -1402,8 +1531,8 @@ def phase_keypoints_profile(tmp):
 
     predict.Loco = no_engine
     try:
-        net = run.main(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode',
-                        'keypoints', '--output_types', 'json', '-o', out_dir])
+        net = _cli(['predict', '--glob', os.path.join(img_dir, '*.png'), '--mode',
+                    'keypoints', '--output_types', 'json', '-o', out_dir])
     finally:
         predict.Loco = real_loco
     dicts = _read_dicts(out_dir, PREDICT_IMAGES)
@@ -1761,7 +1890,6 @@ def _generate_eval(model, precision, mode='mono', profiled=False):
     `profiled` the run is under torch.profiler, for the device's busy share.
     Returns (the record printed, the tree's directory, the GenerateKitti)."""
     from torch.profiler import ProfilerActivity, profile
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.ops import launches
     from monoloco_tpu_torch.tools.eval_parity import extract_metrics
     os.environ['MONOLOCO_TPU_PRECISION'] = precision
@@ -1769,8 +1897,8 @@ def _generate_eval(model, precision, mode='mono', profiled=False):
     with (profile(activities=[ProfilerActivity.CUDA]) if profiled
           else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
-        gen, ev = run.main(['eval', '--generate', '--dir_ann', 'annotations', '--model', model,
-                            '--mode', mode])
+        gen, ev = _cli(['eval', '--generate', '--dir_ann', 'annotations', '--model', model,
+                        '--mode', mode])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ran = {k: n for k, n in launches.items() if n}
@@ -1788,7 +1916,7 @@ def _generate_eval(model, precision, mode='mono', profiled=False):
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
         rec['device_busy_s'] = busy
         rec['device_busy_share'] = busy / wall if busy else 'not measured'
-    print(json.dumps(rec), flush=True)
+    record(rec)
     chunks = -(-n_images // GEN_CHUNK)
     check(net.n_dispatches == chunks, f"{mode} {precision}: {net.n_dispatches} dispatches for "
                                       f"{chunks} chunks")
@@ -1911,8 +2039,8 @@ def phase_generate_chunk(root, model, kernels, folded):
     ms['f32_folded'] = med
     print(f"  f32 folded (torch.matmul) at {x.shape[0]} rows: {med:.4f} ms (min {lo:.4f}, "
           f"max {hi:.4f})", flush=True)
-    print(json.dumps({'phase': 19, 'rows': x.shape[0], 'max_abs_err': worst, 'ms': ms,
-                      'wall_s': time.perf_counter() - t0}), flush=True)
+    record({'phase': 19, 'rows': x.shape[0], 'max_abs_err': worst, 'ms': ms,
+            'wall_s': time.perf_counter() - t0})
     return worst
 
 
@@ -1951,7 +2079,6 @@ def phase_int8_ab(tmp):
 def phase_prep(tmp):
     """`run prep` on a hard-mode synthetic KITTI tree with images, mono and
     stereo; returns (the tree's root, {mode: the joints file})."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.geometry.host import np_preprocess_monoloco
     from monoloco_tpu_torch.tools import make_synthetic_kitti
     banner(f"== phase 21: prep through the entry point, {PREP_TRAIN} train + {PREP_VAL} val "
@@ -1967,13 +2094,13 @@ def phase_prep(tmp):
     try:
         for mode in ('mono', 'stereo'):
             t0 = time.perf_counter()
-            prep = run.main(['prep', '--dir_ann', 'annotations', '--mode', mode])
+            prep = _cli(['prep', '--dir_ann', 'annotations', '--mode', mode])
             wall = time.perf_counter() - t0
             jo = prep.dic_jo
             rows = {ph: len(jo[ph]['X']) for ph in ('train', 'val')}
-            print(json.dumps({'phase': 21, 'mode': mode, 'wall_s': wall, 'rows': rows,
-                              'joints_bytes': os.path.getsize(prep.path_joints),
-                              'names_bytes': os.path.getsize(prep.path_names)}), flush=True)
+            record({'phase': 21, 'mode': mode, 'wall_s': wall, 'rows': rows,
+                    'joints_bytes': os.path.getsize(prep.path_joints),
+                    'names_bytes': os.path.getsize(prep.path_names)})
             check(rows['train'] > 1000 and rows['val'] > 100, f"prep {mode}: rows {rows}")
             # Each row's inputs are its keypoints through K^-1 (the left half
             # for stereo), and its labels a person in front of the camera.
@@ -2064,8 +2191,8 @@ def phase_train_parity(joints):
             if synced:
                 check(rel_l <= TRAIN_PARITY_TOL and rel_g <= TRAIN_PARITY_TOL,
                       f"training step {s}: the card's loss or gradient norm is off the CPU's")
-    print(json.dumps({'phase': 22, 'check': 'card vs cpu', 'steps': PARITY_STEPS,
-                      'max_rel': worst, 'tol': TRAIN_PARITY_TOL}), flush=True)
+    record({'phase': 22, 'check': 'card vs cpu', 'steps': PARITY_STEPS,
+            'max_rel': worst, 'tol': TRAIN_PARITY_TOL})
     return worst['from the card state']
 
 
@@ -2101,13 +2228,12 @@ def _busy_share_of_an_epoch(joints, mode):
 def _timed_train(tmp, joints, mode, precision, epochs):
     """`run train` at `precision` for `epochs`, launch counts zeroed before;
     prints and returns its record, with the checkpoint's path."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.ops import launches
     os.environ['MONOLOCO_TPU_PRECISION'] = precision
     out = os.path.join(tmp, f'{mode}_{precision}.pkl')
     _zero_launches()
     t0 = time.perf_counter()
-    trainer = run.main(_train_args(joints, mode, ('--epochs', str(epochs), '--out', out)))
+    trainer = _cli(_train_args(joints, mode, ('--epochs', str(epochs), '--out', out)))
     wall = time.perf_counter() - t0
     ran = {k: n for k, n in launches.items() if n}
     check(not ran, f"training launched serving kernels: {ran}")
@@ -2127,7 +2253,7 @@ def _timed_train(tmp, joints, mode, precision, epochs):
            'profiled_epoch_wall_s': busy_wall, 'device_busy_share': busy / busy_wall,
            'cuda_kernels_per_step': n_kernels / steps, 'gemm_device_s': gemm,
            'top_kernels': top}
-    print(json.dumps(rec), flush=True)
+    record(rec)
     check(all(np.isfinite(v) for v in val_d), f"train {mode} {precision}: val d not finite")
     check(trainer.best_epoch > 0 and val_d[trainer.best_epoch] < val_d[0],
           f"train {mode} {precision}: the val d loss did not fall ({val_d})")
@@ -2166,7 +2292,7 @@ def phase_trained_eval(root, model):
         _zero_launches()
         t0 = time.perf_counter()
         argv = ['eval', '--generate', '--dir_ann', 'annotations', '--model', model]
-        gen, ev = run.main(argv)
+        gen, ev = _cli(argv)
         wall = time.perf_counter() - t0
         n_images = len(os.listdir(os.path.join('data', 'kitti', gen.net)))
         # The same txt tree scored with every detection kept (the confidence
@@ -2179,10 +2305,10 @@ def phase_trained_eval(root, model):
         os.chdir(old)
     metrics = extract_metrics(ev, gen.net)
     metrics_all = extract_metrics(ev_all, gen.net)
-    print(json.dumps({'phase': 23, 'model': os.path.basename(model), 'images': n_images,
-                      'wall_s': wall, 'dispatches': gen.model.n_dispatches,
-                      'device': str(gen.model.device), **metrics,
-                      'every_detection': metrics_all}), flush=True)
+    record({'phase': 23, 'model': os.path.basename(model), 'images': n_images,
+            'wall_s': wall, 'dispatches': gen.model.n_dispatches,
+            'device': str(gen.model.device), **metrics,
+            'every_detection': metrics_all})
     # A val scene whose pifpaf file holds no detection gets no txt file.
     check(0.95 * PREP_VAL <= n_images <= PREP_VAL and gen.model.device.type == 'cuda',
           f"trained eval: {n_images} txt files on {gen.model.device}")
@@ -2196,7 +2322,6 @@ def phase_resume(tmp, joints):
     for E more, at full width; a zero-epoch resume. Returns the straight
     run's checkpoint."""
     import pickle
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.models import load_checkpoint
     banner(f"== phase 24: train --resume on the card, hidden {HIDDEN}, bs {TRAIN_BS}: "
            f"{2 * RESUME_EPOCHS} epochs straight against {RESUME_EPOCHS} + resume "
@@ -2205,14 +2330,14 @@ def phase_resume(tmp, joints):
     paths = {k: os.path.join(tmp, f'resume_{k}.pkl') for k in ('straight', 'half', 'resumed',
                                                                'zero')}
     t0 = time.perf_counter()
-    straight = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
-                                                   paths['straight'])))
+    straight = _cli(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                               paths['straight'])))
     wall_straight = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run.main(_train_args(joints, extra=('--epochs', str(RESUME_EPOCHS), '--out',
-                                        paths['half'])))
-    resumed = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
-                                                  paths['resumed'], '--resume', paths['half'])))
+    _cli(_train_args(joints, extra=('--epochs', str(RESUME_EPOCHS), '--out',
+                                    paths['half'])))
+    resumed = _cli(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                              paths['resumed'], '--resume', paths['half'])))
     wall_resumed = time.perf_counter() - t0
     check(straight.device.type == 'cuda' and resumed.device.type == 'cuda',
           "resume: training did not run on the card")
@@ -2225,19 +2350,18 @@ def phase_resume(tmp, joints):
     diff = max(float(np.abs(x - y).max()) for x, y in final.values())
     weights = max(float((x - y).abs().max()) for x, y in
                   zip(_leaves(straight.final_params), _leaves(resumed.final_params)))
-    print(json.dumps({'phase': 24, 'epochs': 2 * RESUME_EPOCHS, 'val_d_straight': a.tolist(),
-                      'val_d_resumed': b.tolist(), 'max_abs_diff_final_losses': diff,
-                      'max_abs_diff_final_weights': weights,
-                      'best_epoch': [straight.best_epoch, resumed.best_epoch],
-                      'wall_s': {'straight': wall_straight, 'half_and_resume': wall_resumed}}),
-          flush=True)
+    record({'phase': 24, 'epochs': 2 * RESUME_EPOCHS, 'val_d_straight': a.tolist(),
+            'val_d_resumed': b.tolist(), 'max_abs_diff_final_losses': diff,
+            'max_abs_diff_final_weights': weights,
+            'best_epoch': [straight.best_epoch, resumed.best_epoch],
+            'wall_s': {'straight': wall_straight, 'half_and_resume': wall_resumed}})
     for x, y in final.values():
         check(np.allclose(y, x, rtol=RESUME_TOL, atol=RESUME_TOL),
               f"resume: final losses {y} against the straight run's {x}")
     check(resumed.best_epoch == straight.best_epoch, "resume: another best epoch")
     # A resume with no new epochs keeps the best weights and the epoch.
-    zero = run.main(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
-                                               paths['zero'], '--resume', paths['resumed'])))
+    zero = _cli(_train_args(joints, extra=('--epochs', str(2 * RESUME_EPOCHS), '--out',
+                                           paths['zero'], '--resume', paths['resumed'])))
     with open(paths['zero'], 'rb') as f:
         meta = pickle.load(f)['meta']
     best_p, best_bn, _ = load_checkpoint(paths['resumed'], device=zero.device)
@@ -2324,7 +2448,6 @@ def phase_hyp(tmp, joints):
     3 stages), multiplier 3, serial then stacked through `run train --hyp`;
     then the largest stacked group's steps against its trials' own, each
     from the stacked state (`_hyp_synced_steps`)."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.train import HypTuning
     banner(f"== phase 25: train --hyp on the card: multiplier {HYP_MULTIPLIER} "
            f"({6 * HYP_MULTIPLIER} trials), {HYP_EPOCHS} epochs a trial, serial then stacked",
@@ -2355,7 +2478,7 @@ def phase_hyp(tmp, joints):
             os.environ['MONOLOCO_TPU_HYP_PARALLEL'] = flag
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            best = run.main(argv)
+            best = _cli(argv)
             torch.cuda.synchronize()
             walls[path] = time.perf_counter() - t0
             results[path] = (best, captured['hyp'].trial_results)
@@ -2369,19 +2492,19 @@ def phase_hyp(tmp, joints):
     largest = max(groups.values(), key=len)
     combos = hyp._trial_combos()
     worst = _hyp_synced_steps(joints, hyp, [combos[i] for i in largest])
-    print(json.dumps({'phase': 25, 'trials': len(acc['serial']), 'wall_s': walls,
-                      'best_val_d_serial': acc['serial'].tolist(),
-                      'best_val_d_stacked': acc['stacked'].tolist(),
-                      'free_running_rel_diff_stacked_trials': {
-                          str(i): float(rel[i]) for i in stacked_trials},
-                      'best_epochs': {p: [r[1] for r in results[p][1]] for p in results},
-                      'winner': {p: {k: results[p][0].get(k) for k in
-                                     ('lr', 'bs', 'hidden_size', 'acc_val', 'best_epoch')}
-                                 for p in results},
-                      'synced_steps': {'group': f'bs {combos[largest[0]]["bs"]} hidden '
-                                                f'{combos[largest[0]]["hidden_size"]}',
-                                       'trials': len(largest), 'steps': HYP_SYNC_STEPS,
-                                       'max_rel_or_abs': worst}}), flush=True)
+    record({'phase': 25, 'trials': len(acc['serial']), 'wall_s': walls,
+            'best_val_d_serial': acc['serial'].tolist(),
+            'best_val_d_stacked': acc['stacked'].tolist(),
+            'free_running_rel_diff_stacked_trials': {
+                str(i): float(rel[i]) for i in stacked_trials},
+            'best_epochs': {p: [r[1] for r in results[p][1]] for p in results},
+            'winner': {p: {k: results[p][0].get(k) for k in
+                           ('lr', 'bs', 'hidden_size', 'acc_val', 'best_epoch')}
+                       for p in results},
+            'synced_steps': {'group': f'bs {combos[largest[0]]["bs"]} hidden '
+                                      f'{combos[largest[0]]["hidden_size"]}',
+                             'trials': len(largest), 'steps': HYP_SYNC_STEPS,
+                             'max_rel_or_abs': worst}})
     single = [i for i in range(len(rel)) if i not in stacked_trials]
     check(np.all(np.isfinite(acc['serial'])) and np.all(np.isfinite(acc['stacked'])),
           "hyp: a trial's val d is not finite")
@@ -2417,16 +2540,16 @@ def phase_full_volume(tmp, mode):
                    ale_all_delta_pct={}, wall_s=time.perf_counter() - t0)
     legs, f32 = rec['legs'], rec['legs']['float32']
     busy, wall, _, _, _ = _busy_share_of_an_epoch(rec['joints'], mode)
-    print(json.dumps({'phase': 26 if mode == 'mono' else 27, 'mode': mode, 'epochs': epochs,
-                      'n_train_rows': rec['n_train_rows'], 'train_wall_s': rec['train_wall_s'],
-                      'samples_per_s': rec['samples_per_s'], 'device': rec['device'],
-                      'device_busy_share': busy / wall, 'best_epoch': rec['best_epoch'],
-                      'float32': {'ale': f32['ale'], 'alp': f32['alp'],
-                                  'matched': f32['matched']},
-                      'vs_jax': rec['vs_jax'], 'jax_ale_all': ref['ale_all_mean'],
-                      'jax_alp_1m': ref['alp_1m_mean'],
-                      'ale_pct_vs_float32': rec['ale_all_delta_pct'],
-                      'wall_s': rec['wall_s']}), flush=True)
+    record({'phase': 26 if mode == 'mono' else 27, 'mode': mode, 'epochs': epochs,
+            'n_train_rows': rec['n_train_rows'], 'train_wall_s': rec['train_wall_s'],
+            'samples_per_s': rec['samples_per_s'], 'device': rec['device'],
+            'device_busy_share': busy / wall, 'best_epoch': rec['best_epoch'],
+            'float32': {'ale': f32['ale'], 'alp': f32['alp'],
+                        'matched': f32['matched']},
+            'vs_jax': rec['vs_jax'], 'jax_ale_all': ref['ale_all_mean'],
+            'jax_alp_1m': ref['alp_1m_mean'],
+            'ale_pct_vs_float32': rec['ale_all_delta_pct'],
+            'wall_s': rec['wall_s']})
     check(rec['device'].startswith('cuda'), f"{mode}: trained on {rec['device']}")
     check(f32['matched'] == ref['matched'] if full else f32['matched'] > 0,
           f"{mode}: {f32['matched']} matched rows, the JAX package {ref['matched']}")
@@ -2528,7 +2651,6 @@ def phase_verticals(root, joints, model):
     phase 21's tree with a hidden-1024 checkpoint trained on the card.
     Returns their launch counts."""
     import pickle
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint
     from monoloco_tpu_torch.ops import launches
     banner("== phase 28: eval --activity, --geometric, --variance, --generate --baselines, "
@@ -2539,21 +2661,20 @@ def phase_verticals(root, joints, model):
     try:
         # prep --activity, then eval --activity --dataset kitti under int8.
         t0 = time.perf_counter()
-        run.main(['prep', '--dir_ann', 'annotations', '--activity'])
+        _cli(['prep', '--dir_ann', 'annotations', '--activity'])
         n_gt = len(os.listdir(os.path.join('data', 'kitti', 'gt_activity')))
         os.environ['MONOLOCO_TPU_PRECISION'] = 'int8'
         _zero_launches()
-        ev = run.main(['eval', '--activity', '--dataset', 'kitti', '--dir_ann', 'annotations',
-                       '--model', model])
+        ev = _cli(['eval', '--activity', '--dataset', 'kitti', '--dir_ann', 'annotations',
+                   '--model', model])
         act = dict(launches)
         net = ev.monoloco
         acc = float(np.mean(np.asarray(ev.all_gt['all']) == np.asarray(ev.all_pred['all'])))
-        print(json.dumps({'phase': 28, 'vertical': 'activity', 'gt_files': n_gt,
-                          'matched': len(ev.all_gt['all']), 'accuracy': acc,
-                          'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
-                          'launches': {k: v for k, v in act.items() if v},
-                          'device': str(net.device), 'wall_s': time.perf_counter() - t0}),
-              flush=True)
+        record({'phase': 28, 'vertical': 'activity', 'gt_files': n_gt,
+                'matched': len(ev.all_gt['all']), 'accuracy': acc,
+                'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
+                'launches': {k: v for k, v in act.items() if v},
+                'device': str(net.device), 'wall_s': time.perf_counter() - t0})
         check(net.device.type == 'cuda' and len(ev.all_gt['all']) > 0
               and act['dyn8_mlp'] == net.n_dispatches_int8 > 0,
               f"eval --activity: {net.n_dispatches_int8} int8 dispatches, launches {act}")
@@ -2561,7 +2682,7 @@ def phase_verticals(root, joints, model):
 
         # --geometric and --variance on the prep joints (host numpy).
         t0 = time.perf_counter()
-        errors = run.main(['eval', '--geometric', '--joints', joints['mono']])
+        errors = _cli(['eval', '--geometric', '--joints', joints['mono']])
         check(np.isfinite(errors['all']) and errors['all'] >= 0, f"eval --geometric: {errors}")
         with open(joints['stereo']) as f:
             jo = json.load(f)
@@ -2571,11 +2692,11 @@ def phase_verticals(root, joints, model):
                    for ph in ('train', 'val')}
             with open(f'{stem}_{method}.json', 'w') as f:
                 json.dump(sub, f)
-        dic_var = run.main(['eval', '--variance', '--joints', stem])
+        dic_var = _cli(['eval', '--variance', '--joints', stem])
         rep = dic_var['pifpaf']['rep']
-        print(json.dumps({'phase': 28, 'vertical': 'geometric and variance',
-                          'geometric_error': errors, 'variance_rep': rep,
-                          'wall_s': time.perf_counter() - t0}), flush=True)
+        record({'phase': 28, 'vertical': 'geometric and variance',
+                'geometric_error': errors, 'variance_rep': rep,
+                'wall_s': time.perf_counter() - t0})
         check(set(dic_var) == {'pifpaf', 'mask'} and rep and all(
             0 <= v <= 1 for v in rep.values()), f"eval --variance: {dic_var}")
 
@@ -2585,19 +2706,19 @@ def phase_verticals(root, joints, model):
         save_checkpoint(os.path.join('data', 'models', 'monoloco-190717-0952.pkl'), params, bn)
         _zero_launches()
         t0 = time.perf_counter()
-        gen, ev = run.main(['eval', '--generate', '--baselines', '--dir_ann', 'annotations',
-                            '--model', model])
+        gen, ev = _cli(['eval', '--generate', '--baselines', '--dir_ann', 'annotations',
+                        '--model', model])
         base = dict(launches)
         trees = {n: sorted(os.listdir(os.path.join('data', 'kitti', n)))
                  for n in ('monoloco_pp', 'monoloco', 'geometric')}
-        print(json.dumps({'phase': 28, 'vertical': 'generate --baselines',
-                          'files': {n: len(v) for n, v in trees.items()},
-                          'methods_scored': ev.methods,
-                          'dispatches': gen.model.n_dispatches,
-                          'dispatches_int8': gen.model.n_dispatches_int8,
-                          'legacy_dispatches': gen.monoloco.n_dispatches,
-                          'launches': {k: v for k, v in base.items() if v},
-                          'wall_s': time.perf_counter() - t0}), flush=True)
+        record({'phase': 28, 'vertical': 'generate --baselines',
+                'files': {n: len(v) for n, v in trees.items()},
+                'methods_scored': ev.methods,
+                'dispatches': gen.model.n_dispatches,
+                'dispatches_int8': gen.model.n_dispatches_int8,
+                'legacy_dispatches': gen.monoloco.n_dispatches,
+                'launches': {k: v for k, v in base.items() if v},
+                'wall_s': time.perf_counter() - t0})
         check(trees['monoloco_pp'] and trees['monoloco_pp'] == trees['monoloco']
               == trees['geometric'], "generate --baselines: the trees differ")
         check(gen.monoloco.device.type == 'cuda'
@@ -2615,14 +2736,14 @@ def phase_verticals(root, joints, model):
         except ImportError:
             has_mpl = False
         if has_mpl:
-            run.main(['eval', '--save'])
+            _cli(['eval', '--save'])
             figs = sorted(os.listdir(os.path.join('figures', 'results')))
             check(figs == ['results_monoloco_pp.png', 'spread_monoloco_pp.png',
                            'task_error.png'], f"eval --save wrote {figs}")
             print(f"eval --save: {figs}", flush=True)
         else:
             try:
-                run.main(['eval', '--save'])
+                _cli(['eval', '--save'])
                 fail("eval --save ran without matplotlib")
             except SystemExit as exc:
                 check('matplotlib' in str(exc.code), f"eval --save: {exc.code}")
@@ -2640,8 +2761,8 @@ def phase_verticals(root, joints, model):
     _zero_launches()
     try:
         t0 = time.perf_counter()
-        net, frames = run.main(['predict', '--webcam', '--model', model, '--output_types',
-                                'json', '--activities', 'social_distance', 'raise_hand'])
+        net, frames = _cli(['predict', '--webcam', '--model', model, '--output_types',
+                            'json', '--activities', 'social_distance', 'raise_hand'])
         wall = time.perf_counter() - t0
         cam = dict(launches)
         outs = sorted(os.listdir('.'))
@@ -2655,10 +2776,10 @@ def phase_verticals(root, joints, model):
                 sys.modules[k] = v
         os.chdir(old)
         os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
-    print(json.dumps({'phase': 28, 'vertical': 'webcam', 'frames': frames, 'files': len(outs),
-                      'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
-                      'launches': {k: v for k, v in cam.items() if v}, 'device': str(net.device),
-                      'wall_s': wall, 'frames_per_s': frames / wall}), flush=True)
+    record({'phase': 28, 'vertical': 'webcam', 'frames': frames, 'files': len(outs),
+            'dispatches': net.n_dispatches, 'dispatches_int8': net.n_dispatches_int8,
+            'launches': {k: v for k, v in cam.items() if v}, 'device': str(net.device),
+            'wall_s': wall, 'frames_per_s': frames / wall})
     check(frames == WEBCAM_FRAMES and net.device.type == 'cuda'
           and outs == [f'out_webcam_{i}.monoloco.json' for i in range(WEBCAM_FRAMES)],
           f"webcam: {frames} frames, files {outs}")
@@ -2736,13 +2857,13 @@ def phase_reid(smi):
     forward_s = time.perf_counter() - t1
     err = float(np.abs(feats['cuda'] - feats['cpu']).max())
     scale = float(np.abs(feats['cpu']).max())
-    print(json.dumps({'phase': 29, 'net': 'resnet50', 'crops': REID_CROPS, 'hw': [256, 128],
-                      'features': list(feats['cuda'].shape), 'max_abs_err': err,
-                      'max_abs_feature': scale, 'net_ms_per_batch': ms,
-                      'net_crops_per_s': REID_CROPS / ms * 1e3,
-                      'forward_s_with_host_resize': forward_s,
-                      'crops_per_s_with_host_resize': REID_CROPS / forward_s,
-                      'wall_s': time.perf_counter() - t0, 'device': smi}), flush=True)
+    record({'phase': 29, 'net': 'resnet50', 'crops': REID_CROPS, 'hw': [256, 128],
+            'features': list(feats['cuda'].shape), 'max_abs_err': err,
+            'max_abs_feature': scale, 'net_ms_per_batch': ms,
+            'net_crops_per_s': REID_CROPS / ms * 1e3,
+            'forward_s_with_host_resize': forward_s,
+            'crops_per_s_with_host_resize': REID_CROPS / forward_s,
+            'wall_s': time.perf_counter() - t0, 'device': smi})
     check(feats['cuda'].shape == (REID_CROPS, 2048) and np.isfinite(feats['cuda']).all(),
           "ResNet-50 features: shape or finiteness")
     check(err <= REID_TOL * scale, f"ResNet-50 card vs CPU: {err} > {REID_TOL} x {scale}")
@@ -2752,9 +2873,8 @@ def phase_reid(smi):
     with torch.inference_mode():
         t_ms = _cuda_ms(lambda: tiny['cuda'].net(x), REID_REPS)
     t_err = float(np.abs(t_feats['cuda'] - t_feats['cpu']).max())
-    print(json.dumps({'phase': 29, 'net': 'tiny', 'hw': [64, 32], 'max_abs_err': t_err,
-                      'net_ms_per_batch': t_ms, 'net_crops_per_s': REID_CROPS / t_ms * 1e3}),
-          flush=True)
+    record({'phase': 29, 'net': 'tiny', 'hw': [64, 32], 'max_abs_err': t_err,
+            'net_ms_per_batch': t_ms, 'net_crops_per_s': REID_CROPS / t_ms * 1e3})
     check(t_err <= TINY_REID_TOL, f"tiny ReID card vs CPU: {t_err}")
 
 
@@ -2808,7 +2928,6 @@ def phase_stereo_baselines(tmp, s_params, s_bn):
     """`eval --generate --baselines --mode stereo` through the entry point:
     float32, int8 and bf16 runs (launches counted), and a float32 run
     without --baselines. Returns the main-path launches."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.eval import GenerateKitti
     from monoloco_tpu_torch.models import init_monoloco_params, save_checkpoint
     from monoloco_tpu_torch.ops import launches
@@ -2833,7 +2952,7 @@ def phase_stereo_baselines(tmp, s_params, s_bn):
             extra = ['--baselines', '--reid_weights', TINY_REID] if baselines else []
             _zero_launches()
             t1 = time.perf_counter()
-            gen, ev = run.main(argv + extra)
+            gen, ev = _cli(argv + extra)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
             ran = {k: n for k, n in launches.items() if n}
@@ -2854,8 +2973,9 @@ def phase_stereo_baselines(tmp, s_params, s_bn):
                 check(set(methods) <= set(ev.methods), f"EvalKitti scored {ev.methods}")
                 check(gen.reid_net.pretrained and gen.reid_net.device.type == 'cuda',
                       "the ReID net is not the tiny one on the card")
-                counts = {k: counts.get(k, 0) + n for k, n in ran.items()}
-            print(json.dumps(rec), flush=True)
+                for k, n in ran.items():
+                    counts[k] = counts.get(k, 0) + n
+            record(rec)
             for m in methods:
                 check(len(trees[key][m]) == BASELINE_SCENES, f"{key}: {m} has "
                                                              f"{len(trees[key][m])} files")
@@ -2941,7 +3061,6 @@ def _val_logs(trainer):
 def phase_meshes(tmp, joints, model, s_params, s_bn):
     """Every mesh entry point over an NCCL world of torch.cuda.device_count()
     ranks against the run without a mesh. Returns the main-path launches."""
-    from monoloco_tpu_torch import run
     from monoloco_tpu_torch.models import save_checkpoint
     from monoloco_tpu_torch.network import Loco
     from monoloco_tpu_torch.ops import launches
@@ -2957,14 +3076,14 @@ def phase_meshes(tmp, joints, model, s_params, s_bn):
     runs = {}
     for key, extra in (('none', []), ('mesh', ['--dp_devices', str(n)])):
         t1 = time.perf_counter()
-        trainer = run.main(_train_args(joints['mono'], 'mono', (
+        trainer = _cli(_train_args(joints['mono'], 'mono', (
             '--epochs', str(MESH_TRAIN_EPOCHS), '--no_save', *extra)))
         runs[key] = (_val_logs(trainer), time.perf_counter() - t1, trainer)
     val, val_ref = runs['mesh'][0], runs['none'][0]
     rel = float(np.max(np.abs(val - val_ref) / np.abs(val_ref)))
-    print(json.dumps({'phase': 31, 'path': 'run train', 'dp': n, 'epochs': MESH_TRAIN_EPOCHS,
-                      'val_max_rel_vs_no_mesh': rel, 'wall_s_mesh': runs['mesh'][1],
-                      'wall_s_no_mesh': runs['none'][1]}), flush=True)
+    record({'phase': 31, 'path': 'run train', 'dp': n, 'epochs': MESH_TRAIN_EPOCHS,
+            'val_max_rel_vs_no_mesh': rel, 'wall_s_mesh': runs['mesh'][1],
+            'wall_s_no_mesh': runs['none'][1]})
     check(runs['mesh'][2].device.type == 'cuda', "the mesh trained off the card")
     check(rel <= (MESH_TRAIN_RTOL if n == 1 else 2e-3), f"train on the mesh: val {rel}")
     old = os.getcwd()
@@ -2978,24 +3097,25 @@ def phase_meshes(tmp, joints, model, s_params, s_bn):
                 for key, extra in (('none', []), ('mesh', ['--dp_devices', str(n)])):
                     _zero_launches()
                     t1 = time.perf_counter()
-                    gen, _ = run.main(['eval', '--generate', '--mode', mode, '--dir_ann',
-                                       'annotations', '--model', ckpt, *extra])
+                    gen, _ = _cli(['eval', '--generate', '--mode', mode, '--dir_ann',
+                                   'annotations', '--model', ckpt, *extra])
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t1
                     ran = {k: c for k, c in launches.items() if c}
                     if key == 'mesh':
-                        counts = {k: counts.get(k, 0) + c for k, c in ran.items()}
+                        for k, c in ran.items():
+                            counts[k] = counts.get(k, 0) + c
                         check(gen.model.mesh is not None and gen.model.mesh.dp == n,
                               "generation ran without the mesh")
                     tree = os.path.join('data', 'kitti', gen.net)
                     trees[key] = {f: open(os.path.join(tree, f), 'rb').read()
                                   for f in sorted(os.listdir(tree))}
-                    print(json.dumps({'phase': 31, 'path': 'eval --generate', 'mode': mode,
-                                      'precision': precision, 'mesh': key, 'wall_s': wall,
-                                      'images_per_s': len(trees[key]) / wall,
-                                      'dispatches': gen.model.n_dispatches,
-                                      'dispatches_int8': gen.model.n_dispatches_int8,
-                                      'launches': ran}), flush=True)
+                    record({'phase': 31, 'path': 'eval --generate', 'mode': mode,
+                            'precision': precision, 'mesh': key, 'wall_s': wall,
+                            'images_per_s': len(trees[key]) / wall,
+                            'dispatches': gen.model.n_dispatches,
+                            'dispatches_int8': gen.model.n_dispatches_int8,
+                            'launches': ran})
                 check(trees['mesh'] == trees['none'] and len(trees['none']) == MESH_TREE_SCENES,
                       f"{mode} {precision}: the mesh's txts differ from the run without one")
                 print(f"{mode} {precision}: {len(trees['none'])} txts byte-equal", flush=True)
@@ -3013,21 +3133,21 @@ def phase_meshes(tmp, joints, model, s_params, s_bn):
         for key in ('xyzd', 'bi', 'h', 'w', 'l'):
             got, want = np.asarray(out[key], np.float64), np.asarray(ref[key], np.float64)
             worst = max(worst, float((np.abs(got - want) / (1 + np.abs(want))).max()))
-    print(json.dumps({'phase': 31, 'path': 'serve', 'dp': n, 'requests': len(responses),
-                      'max_rel_vs_no_mesh': worst,
-                      'wall_s': time.perf_counter() - t1}), flush=True)
+    record({'phase': 31, 'path': 'serve', 'dp': n, 'requests': len(responses),
+            'max_rel_vs_no_mesh': worst,
+            'wall_s': time.perf_counter() - t1})
     check(worst <= MESH_SERVE_TOL, f"serve --dp_devices {n}: {worst}")
     line = dryrun_multichip(n)
     check(f'dp{n}' in line and 'train step ok (hidden 1024, 3 stages' in line,
           f"dryrun_multichip({n}): {line}")
     if n >= 4:
         os.environ['MONOLOCO_TPU_PRECISION'] = 'float32'
-        trainer = run.main(_train_args(joints['mono'], 'mono', (
+        trainer = _cli(_train_args(joints['mono'], 'mono', (
             '--epochs', str(MESH_TRAIN_EPOCHS), '--no_save', '--dp_devices', '2',
             '--tp_devices', '2')))
         rel = float(np.max(np.abs(_val_logs(trainer) - val_ref) / np.abs(val_ref)))
-        print(json.dumps({'phase': 31, 'path': 'run train dp2xtp2', 'val_max_rel_vs_no_mesh':
-                          rel}), flush=True)
+        record({'phase': 31, 'path': 'run train dp2xtp2', 'val_max_rel_vs_no_mesh':
+                rel})
         check(rel <= 2e-3, f"train dp2 x tp2: val {rel}")
     print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
@@ -3082,11 +3202,9 @@ def run_training_and_verticals(tmp, prep_root, joints, main_launches):
     t0 = time.perf_counter()
     model = phase_resume(tmp, joints['mono'])
     phase_hyp(tmp, joints['mono'])
-    for mode in ('mono', 'stereo'):
-        for key, n in phase_full_volume(tmp, mode).items():
-            main_launches[key] = main_launches.get(key, 0) + n
-    for key, n in phase_verticals(prep_root, joints, model).items():
-        main_launches[key] = main_launches.get(key, 0) + n
+    for phase, mode in ((26, 'mono'), (27, 'stereo')):
+        tally(main_launches, phase, phase_full_volume(tmp, mode))
+    tally(main_launches, 28, phase_verticals(prep_root, joints, model))
     print(f"phases 24-28: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3127,10 +3245,10 @@ def phase_pifpaf(tmp, smi):
             wall = time.perf_counter() - t0
             print(f"phase 32 {precision}: {wall:.2f} s wall through OpenPifPaf "
                   f"({PREDICT_IMAGES} images), {fed_wall:.2f} s JSON-fed, on {smi}", flush=True)
-            print(json.dumps({'phase': 32, 'precision': precision, 'images': PREDICT_IMAGES,
-                              'wall_s': wall, 'wall_s_json_fed': fed_wall,
-                              'dispatches': net.n_dispatches, 'dyn8_launches': n_launch,
-                              'dyn8_launches_json_fed': n_fed}), flush=True)
+            record({'phase': 32, 'precision': precision, 'images': PREDICT_IMAGES,
+                    'wall_s': wall, 'wall_s_json_fed': fed_wall,
+                    'dispatches': net.n_dispatches, 'dyn8_launches': n_launch,
+                    'dyn8_launches_json_fed': n_fed})
             configured = [a for t, a in openpifpaf.CONFIGURE_CALLS if t == 'Predictor']
             check(configured and all(str(a.device) == 'cuda' for a in configured),
                   "OpenPifPaf's net was not configured for the card")
@@ -3236,12 +3354,144 @@ def phase_export(tmp, smi):
               f"{n_launch}, on {smi}", flush=True)
     devs = _geometry_on_the_card()
     wall = time.perf_counter() - t_phase
-    print(json.dumps({'phase': 33, 'images': PREDICT_IMAGES, 'tensors': len(written),
-                      'wall_s_float32': walls['float32'], 'wall_s_int8': walls['int8'],
-                      'dyn8_launches': counts['dyn8_mlp'], 'geometry_rel': devs,
-                      'phase_wall_s': wall}), flush=True)
+    record({'phase': 33, 'images': PREDICT_IMAGES, 'tensors': len(written),
+            'wall_s_float32': walls['float32'], 'wall_s_int8': walls['int8'],
+            'dyn8_launches': counts['dyn8_mlp'], 'geometry_rel': devs,
+            'phase_wall_s': wall})
     print(f"phase 33: {wall:.2f} s wall on {smi}", flush=True)
     return counts
+
+
+def _driver(args, timeout, label):
+    """One driver in an interpreter of its own, unpinned (no
+    MONOLOCO_TPU_PRECISION); a non-zero exit fails the script. Returns its
+    JSON lines and its stdout."""
+    env = {k: v for k, v in os.environ.items() if k != 'MONOLOCO_TPU_PRECISION'}
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, *args], cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        fail(f"{label} ran past its {timeout} s: {(exc.stdout or '')[-2000:]}")
+    check(res.returncode == 0, f"{label} exited {res.returncode}:\n{res.stdout[-2000:]}\n"
+                               f"{res.stderr[-3000:]}")
+    print(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith('{')], res.stdout
+
+
+def _finite(*values):
+    return all(isinstance(v, (int, float)) and np.isfinite(v) for v in values)
+
+
+def _reid_association(weights):
+    """L->R nearest-neighbour association over REID_PEOPLE's scenes (the
+    port's `write_scene`, seed 3) with the ReID of `weights` on the card
+    (None: random ResNet-50 features). Returns (hits, total)."""
+    import warnings
+    from monoloco_tpu_torch.eval.reid_baseline import ReID, get_reid_features
+    from monoloco_tpu_torch.tools.make_synthetic_kitti import write_scene
+
+    def boxes(anns):
+        return [[a['bbox'][0], a['bbox'][1], a['bbox'][0] + a['bbox'][2],
+                 a['bbox'][1] + a['bbox'][3]] for a in anns]
+
+    with tempfile.TemporaryDirectory() as root, warnings.catch_warnings():
+        warnings.simplefilter('ignore')                # the random-weights warning
+        with _captured('ReID load'):
+            reid = ReID(weights_path=weights, device='cuda')
+        rng = np.random.RandomState(3)
+        hits = total = 0
+        for idx, people in enumerate(REID_PEOPLE):
+            name = write_scene(root, idx, people, rng)
+            anns = []
+            for sub in ('annotations', 'annotations_right'):
+                with open(os.path.join(root, sub, name + '.png.predictions.json')) as f:
+                    anns.append(json.load(f))
+            f_l, f_r = get_reid_features(
+                reid, boxes(anns[0]), boxes(anns[1]),
+                os.path.join(root, 'data', 'kitti', 'images', name + '.png'),
+                os.path.join(root, 'data', 'kitti', 'images_r', name + '.png'))
+            d = np.linalg.norm(np.asarray(f_l)[:, None, :] - np.asarray(f_r)[None, :, :], axis=2)
+            hits += int(np.sum(np.argmin(d, axis=1) == np.arange(len(anns[0]))))
+            total += len(anns[0])
+    return hits, total
+
+
+def phase_drivers(smi, gen_root):
+    """The drivers ported from the JAX package's tools/, each as a user runs
+    it, in an interpreter of its own with its own time limit; the generation
+    bench reuses phase 20's easy-mode dataset at `gen_root` (every scene has
+    a detection there, so every image gets its txt)."""
+    banner("== phase 34: the drivers (bench_variance, bench_int8_roofline, "
+           "bench_generate_full_scale, bench_cli_phases, bench_hyp_search core, "
+           "bench_mesh_scaling, train_tiny_reid)", flush=True)
+    t_phase = time.perf_counter()
+    tool = 'monoloco_tpu_torch.tools.'
+
+    lines, _ = _driver(['-m', tool + 'bench_variance', str(VARIANCE_RUNS)], 150,
+                       'bench_variance')
+    summary = lines[-1]
+    check(summary['n_failed'] == 0 and summary['n'] == VARIANCE_RUNS
+          and _finite(summary['median'], summary['bf16_median'], summary['int8_dyn_median']),
+          f"bench_variance: {summary}")
+    record({'phase': 34, 'driver': 'bench_variance', **summary})
+
+    rows, _ = _driver(['-m', tool + 'bench_int8_roofline'], 150, 'bench_int8_roofline')
+    which = [r['which'] for r in rows]
+    check(which == ['peak_int8_8192cubed_tops', 'chain_int8_noquant_tops',
+                    'chain_int8_dyn_requant_tops', 'serve_dyn8', 'summary'],
+          f"bench_int8_roofline rows {which}")
+    check(all(_finite(r['value']) and r['value'] > 0 for r in rows[:3])
+          and _finite(rows[3]['inf_per_sec']) and rows[3]['launches'].get('dyn8_mlp', 0) > 0,
+          f"bench_int8_roofline: {rows[:4]}")
+    record({'phase': 34, 'driver': 'bench_int8_roofline', **rows[-1],
+            'serve_launches': rows[3]['launches']})
+
+    lines, _ = _driver(['-m', tool + 'bench_generate_full_scale', gen_root, '--mode', 'mono'],
+                       180, 'bench_generate_full_scale')
+    gen = lines[-1]
+    check(gen['n_images'] == gen['txt_written'] == GEN_VAL
+          and gen['dispatches'] == -(-GEN_VAL // GEN_CHUNK), f"generation: {gen}")
+    record({'phase': 34, 'driver': 'bench_generate_full_scale', **gen})
+
+    lines, _ = _driver(['-m', tool + 'bench_cli_phases'], 120, 'bench_cli_phases')
+    cli = lines[-1]
+    check(_finite(cli['imports_s'], cli['trainer_init_s'], cli['train_s'], cli['evaluate_s']),
+          f"bench_cli_phases: {cli}")
+    record({'phase': 34, 'driver': 'bench_cli_phases', **cli})
+
+    lines, _ = _driver(['-c', 'import json; from monoloco_tpu_torch.tools.bench_hyp_search '
+                              f'import run_core; print(json.dumps(run_core(epochs='
+                              f'{HYP_CORE_EPOCHS})))'], 150, 'bench_hyp_search core')
+    core = lines[-1]
+    check(core['trials'] == 24 and _finite(core['vmapped_24trials'], core['serial_24trials']),
+          f"bench_hyp_search core: {core}")
+    record({'phase': 34, 'driver': 'bench_hyp_search core', **core})
+
+    lines, out = _driver(['-m', tool + 'bench_mesh_scaling', '--widths', '1'], 120,
+                         'bench_mesh_scaling')
+    check([(r['what'], r['dp'], r['batch'], r['hidden']) for r in lines]
+          == [('train', 1, TRAIN_BS, HIDDEN), ('serve', 1, TRAIN_BS, HIDDEN)]
+          and all(_finite(r['median_step_ms']) for r in lines), f"mesh scaling: {lines}")
+    record({'phase': 34, 'driver': 'bench_mesh_scaling', 'rows': lines,
+            'verdicts': [ln for ln in out.splitlines() if 'step-wall ratio' in ln]})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, 'tiny_reid.pkl')
+        _, out = _driver(['-m', tool + 'train_tiny_reid', weights], 120, 'train_tiny_reid')
+        holdout = float(re.search(r'holdout nearest-neighbor accuracy: ([0-9.]+)',
+                                  out).group(1))
+        hits, total = _reid_association(weights)
+        r_hits, _ = _reid_association(None)
+    acc = hits / total
+    record({'phase': 34, 'driver': 'train_tiny_reid', 'holdout_nn_acc': holdout,
+            'association_hits': hits, 'associations': total, 'association_acc': acc,
+            'random_features_hits': r_hits})
+    check(acc >= REID_MIN_ACC and hits >= r_hits,
+          f"the card-trained tiny ReID associates {hits}/{total} (random features {r_hits})")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 34: {wall:.1f} s wall (budget {DRIVERS_BUDGET_S} s) on {smi}", flush=True)
+    check(wall <= DRIVERS_BUDGET_S, f"phase 34 took {wall:.1f} s, past its {DRIVERS_BUDGET_S} s")
 
 
 def main():
@@ -3265,7 +3515,8 @@ def main():
     phase_rows(packed)
     # Phase 4's checkpoint, images and outputs, which phases 12-14 reuse.
     main_dir = tempfile.TemporaryDirectory()
-    main_launches = phase_main_path(params, bn_state, main_dir.name)
+    main_launches = {}
+    tally(main_launches, 4, phase_main_path(params, bn_state, main_dir.name))
     phase_reference()
     med = phase_times(kernels, folded, smi)
     s_params, s_bn = init_loco_params(SEED + 2, 68, 10, HIDDEN, STAGES)
@@ -3275,33 +3526,29 @@ def main():
     stereo = {name: (*kern, s_folded) for name, kern in make_kernels(s_folded, s_calib).items()}
     max_err.update(phase_new_kernels(kernels, folded, stereo))
     max_err['relu_chain_bf16'] = phase_relu_chain()
-    for key, n in phase_bench().items():
-        main_launches[key] = main_launches.get(key, 0) + n
+    tally(main_launches, 8, phase_bench())
     # MonStereo at full width, the weights of the stereo main path.
     m_params, m_bn = make_weights(STEREO_IN, STEREO_OUT, SEED + 2)
     with tempfile.TemporaryDirectory() as tmp:
-        main_launches['dyn8_mlp'] += phase_stereo(m_params, m_bn, tmp)['dyn8_mlp']
+        tally(main_launches, 9, {'dyn8_mlp': phase_stereo(m_params, m_bn, tmp)['dyn8_mlp']})
     m_folded = fold_eval_params(_to_cuda(m_params), _to_cuda(m_bn))
     max_err['dyn8_mlp'] = max(max_err['dyn8_mlp'],
                               phase_dyn8_stereo(pack_folded_weights_w8(m_folded), m_folded))
-    main_launches['relu_chain_bf16'] = phase_roofline()['relu_chain_bf16']
+    tally(main_launches, 11, {'relu_chain_bf16': phase_roofline()['relu_chain_bf16']})
     f32_dicts, f32_epi, mc_launches = phase_mc(main_dir.name)
-    for counts in (mc_launches, phase_precisions(main_dir.name, f32_dicts, f32_epi,
-                                                 kernels['dyn8_mlp'])):
-        for key, n in counts.items():
-            main_launches[key] = main_launches.get(key, 0) + n
+    tally(main_launches, 12, mc_launches)
+    tally(main_launches, 13, phase_precisions(main_dir.name, f32_dicts, f32_epi,
+                                              kernels['dyn8_mlp']))
     phase_keypoints_profile(main_dir.name)
     phase_serve_entry(main_dir.name)
-    for counts in (phase_serve_kernels(main_dir.name, m_params, m_bn), phase_serve_tools()):
-        for key, n in counts.items():
-            main_launches[key] = main_launches.get(key, 0) + n
+    tally(main_launches, 16, phase_serve_kernels(main_dir.name, m_params, m_bn))
+    tally(main_launches, 17, phase_serve_tools())
     model = _main_model(main_dir.name)
     gen_root, gen_counts = phase_generate(main_dir.name, model, m_params, m_bn)
     for key, n in phase_generate_chunk(gen_root, model, kernels, folded).items():
         max_err[key] = max(max_err[key], n)
-    for counts in (gen_counts, phase_int8_ab(main_dir.name)):
-        for key, n in counts.items():
-            main_launches[key] = main_launches.get(key, 0) + n
+    tally(main_launches, 18, gen_counts)
+    tally(main_launches, 20, phase_int8_ab(main_dir.name))
     # Prep, training and the trained checkpoint's ALE/ALP (phases 21-23).
     t0 = time.perf_counter()
     prep_root, joints = phase_prep(main_dir.name)
@@ -3312,13 +3559,12 @@ def main():
     # The ReID net, the stereo baselines and the meshes (phases 29-31).
     t0 = time.perf_counter()
     phase_reid(smi)
-    for counts in (phase_stereo_baselines(main_dir.name, m_params, m_bn),
-                   phase_meshes(main_dir.name, joints, model, m_params, m_bn)):
-        for key, n in counts.items():
-            main_launches[key] = main_launches.get(key, 0) + n
+    tally(main_launches, 30, phase_stereo_baselines(main_dir.name, m_params, m_bn))
+    tally(main_launches, 31, phase_meshes(main_dir.name, joints, model, m_params, m_bn))
     print(f"phases 29-31: {time.perf_counter() - t0:.1f} s", flush=True)
-    main_launches['dyn8_mlp'] += phase_pifpaf(main_dir.name, smi)['dyn8_mlp']
-    main_launches['dyn8_mlp'] += phase_export(main_dir.name, smi)['dyn8_mlp']
+    tally(main_launches, 32, phase_pifpaf(main_dir.name, smi))
+    tally(main_launches, 33, phase_export(main_dir.name, smi))
+    phase_drivers(smi, os.path.join(main_dir.name, 'kitti_ab'))
     main_dir.cleanup()
     check('jax' not in sys.modules, "jax was imported")
     names = list(kernels) + ['relu_chain_bf16']
@@ -3343,6 +3589,7 @@ def main():
               "f32_matmul_ms": med['f32 folded (torch.matmul)'],
               "bf16_matmul_ms": med['bf16 folded (torch.matmul)']}
     print(f"nvidia-smi: {smi}")
+    print(phases_line())
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,13 +24,23 @@ orbax, matplotlib, PIL and openpifpaf is in sys.modules (nor tabulate,
 yaml or cv2
 after the imports: EvalKitti imports tabulate only to print its table,
 where there is one).
+
+Each driver of the JAX package's `tools/` that the port carries
+(`DRIVERS`) is imported alone in a fresh interpreter, which must then hold
+no jax, jaxlib, optax, orbax or `monoloco_tpu` module and nothing loaded
+from `tools/`; and, with no card and no `--disable-cuda`, each raises
+before it runs anything on the CPU (no subprocess, no file written).
 """
 
+import importlib
 import os
 import re
 import subprocess
 import sys
 import textwrap
+
+import pytest
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -284,3 +294,53 @@ def test_no_jax_import_statement_in_the_port():
                     if pattern.search(f.read()):
                         offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
+
+
+# Each driver's arguments for a run that would do work: ROOT and OUT stand
+# for paths under the test's tmp_path.
+DRIVERS = {
+    'bench_variance': ['3'],
+    'bench_int8_roofline': [],
+    'bench_generate_full_scale': ['ROOT', '--n_val', '2'],
+    'bench_cli_phases': ['--out', 'OUT'],
+    'bench_hyp_search': ['core'],
+    'bench_mesh_scaling': ['--widths', '1'],
+    'train_tiny_reid': ['OUT'],
+}
+
+_IMPORT_ONE = textwrap.dedent("""
+    import importlib, os, sys
+    importlib.import_module(sys.argv[1])
+    tools = os.path.join(sys.argv[2], 'tools') + os.sep
+    leaked = sorted(name for name, mod in list(sys.modules.items())
+                    if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'monoloco_tpu')
+                    or (getattr(mod, '__file__', None) or '').startswith(tools))
+    print('LEAKED', leaked)
+""")
+
+
+@pytest.mark.parametrize('driver', sorted(DRIVERS))
+def test_driver_imports_without_jax(driver):
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', _IMPORT_ONE,
+                          f'monoloco_tpu_torch.tools.{driver}', REPO],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'LEAKED []' in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize('driver', sorted(DRIVERS))
+def test_driver_refuses_the_cpu_without_disable_cuda(driver, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.chdir(tmp_path)
+
+    def no_subprocess(*args, **kwargs):
+        raise AssertionError(f'{driver} started a subprocess: {args}')
+
+    monkeypatch.setattr(subprocess, 'run', no_subprocess)
+    paths = {'ROOT': str(tmp_path / 'root'), 'OUT': str(tmp_path / 'out.pkl')}
+    argv = [paths.get(a, a) for a in DRIVERS[driver]]
+    module = importlib.import_module(f'monoloco_tpu_torch.tools.{driver}')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        module.main(argv)
+    assert os.listdir(tmp_path) == []
