@@ -77,6 +77,7 @@ from ..models import (FoldedLoco, dropout_masks, fold_eval_params, folded_forwar
 from ..parallel import gather_rows, row_range
 from ..ops import (fused_loco_forward, fused_loco_forward_dyn8_auto, pack_folded_weights,
                    pack_folded_weights_w8)
+from ..utils import trace
 from ..utils.precision import serve_storage, serving_precision, tf32_matmuls
 from .decode import (extract_outputs, extract_outputs_mono, laplace_sampling,
                      laplace_uniforms, unnormalize_bi)
@@ -141,6 +142,11 @@ def _pad_rows(arr, size):
 def _to_host(dic):
     return {k: (tuple(t.cpu().numpy() for t in v) if k == 'yaw' else v.cpu().numpy())
             for k, v in dic.items()}
+
+
+def _n_copies(dic):
+    """The blocking copies `_to_host(dic)` makes."""
+    return sum(len(v) if k == 'yaw' else 1 for k, v in dic.items())
 
 
 def default_device():
@@ -356,86 +362,129 @@ class Loco:
         CUDA launches are asynchronous, so the caller can prepare the next
         chunk or write files before finalize() waits for this one. Images pad
         to shared detection buckets, as in the JAX package.
+
+        With tracing on (`utils/trace.py`) the call is a `loco.dispatch` span
+        holding `loco.bucket` (the buckets and the padded host arrays),
+        `loco.h2d` (the blocking copies to the device) and `loco.launch`
+        (the forward, the gather and the MC passes, enqueued); its counters
+        are `rows_useful` (sum L, or L x R, a frame), `rows_run` (the padded
+        bucket, B m or B m r), both x (1 + n_dropout) with MC, and
+        `h2d_copies`. finalize() is a `loco.finalize` span of the same
+        dispatch id, counting `d2h_copies`, holding `loco.wait`, `loco.d2h`
+        and `loco.unpack` (the per-image slicing). `loco.wait` is this
+        dispatch's own device work: on a card, a sync on an event recorded
+        after its launches, made only while tracing. `loco.d2h` is the
+        blocking copies to the host, which also wait behind whatever was
+        queued on the stream after that work (the next chunk, with two in
+        flight).
         """
         if self.net not in ('monoloco_pp', 'monoloco_p', 'monstereo'):
             raise ValueError("forward_batch supports the monoloco_pp, monoloco_p and "
                              "monstereo nets")
-        counts = [0 if k is None else len(k) for k in keypoints_list]
         n_img = len(keypoints_list)
         if n_img == 0:
             return lambda: []
-        m_bucket = _bucket(max(max(counts), 1))
-        b_bucket = _bucket(n_img, minimum=1)
-        dp = 1 if self.mesh is None else self.mesh.dp
-        if dp > 1:
-            # The image axis splits over the data ranks: pad the batch bucket
-            # up to a multiple of them.
-            b_bucket = max(b_bucket, dp)
-            b_bucket += (-b_bucket) % dp
-        lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, self.mesh)
-        kps = np.zeros((b_bucket, m_bucket, 3, 17), np.float32)
-        kks = np.zeros((b_bucket, 3, 3), np.float32)
-        kks[:] = np.eye(3)
-        for i, (k, kk) in enumerate(zip(keypoints_list, kk_list)):
-            if counts[i]:
-                kps[i, :counts[i]] = np.asarray(k, np.float32)
-            kks[i] = np.asarray(kk, np.float32)
+        stereo = self.net == 'monstereo'
+        with trace.span('loco.dispatch') as root:
+            with trace.span('loco.bucket'):
+                counts = [0 if k is None else len(k) for k in keypoints_list]
+                m_bucket = _bucket(max(max(counts), 1))
+                b_bucket = _bucket(n_img, minimum=1)
+                dp = 1 if self.mesh is None else self.mesh.dp
+                if dp > 1:
+                    # The image axis splits over the data ranks: pad the batch
+                    # bucket up to a multiple of them.
+                    b_bucket = max(b_bucket, dp)
+                    b_bucket += (-b_bucket) % dp
+                lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, self.mesh)
+                kps = np.zeros((b_bucket, m_bucket, 3, 17), np.float32)
+                kks = np.zeros((b_bucket, 3, 3), np.float32)
+                kks[:] = np.eye(3)
+                for i, (k, kk) in enumerate(zip(keypoints_list, kk_list)):
+                    if counts[i]:
+                        kps[i, :counts[i]] = np.asarray(k, np.float32)
+                    kks[i] = np.asarray(kk, np.float32)
+                if stereo:
+                    if keypoints_r_list is None:
+                        keypoints_r_list = [None] * n_img
+                    counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
+                    r_bucket = _bucket(max(max(counts_r), 1))
+                    kps_r = np.zeros((b_bucket, r_bucket, 3, 17), np.float32)
+                    r_mask = np.zeros((b_bucket, r_bucket), bool)
+                    for i in range(n_img):
+                        if counts_r[i]:
+                            kps_r[i, :counts_r[i]] = np.asarray(keypoints_r_list[i],
+                                                                np.float32)
+                            r_mask[i, :counts_r[i]] = True
+                        elif counts[i]:
+                            # No right detections: the first left pose stands in.
+                            kps_r[i, 0] = kps[i, 0]
+                            r_mask[i, 0] = True
+                    host = (kps, kps_r, r_mask, kks)
+                else:
+                    host = (kps, kks)
 
-        def dev(arr):
-            """This rank's images of a batch array, on the device."""
-            return torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(self.device)
+            def dev(arr):
+                """This rank's images of a batch array, on the device."""
+                return torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(self.device)
 
-        def gather(dic):
-            if self.mesh is None:
-                return dic
-            return {k: (tuple(gather_rows(t, self.mesh) for t in v) if k == 'yaw'
-                        else gather_rows(v, self.mesh)) for k, v in dic.items()}
+            def gather(dic):
+                if self.mesh is None:
+                    return dic
+                return {k: (tuple(gather_rows(t, self.mesh) for t in v) if k == 'yaw'
+                            else gather_rows(v, self.mesh)) for k, v in dic.items()}
 
-        epi_dev = None
-        with torch.inference_mode():
-            if self.net == 'monstereo':
-                if keypoints_r_list is None:
-                    keypoints_r_list = [None] * n_img
-                counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
-                r_bucket = _bucket(max(max(counts_r), 1))
-                kps_r = np.zeros((b_bucket, r_bucket, 3, 17), np.float32)
-                r_mask = np.zeros((b_bucket, r_bucket), bool)
-                for i in range(n_img):
-                    if counts_r[i]:
-                        kps_r[i, :counts_r[i]] = np.asarray(keypoints_r_list[i], np.float32)
-                        r_mask[i, :counts_r[i]] = True
-                    elif counts[i]:
-                        # No right detections: the first left pose stands in.
-                        kps_r[i, 0] = kps[i, 0]
-                        r_mask[i, 0] = True
-                self._count_dispatch((hi - lo) * m_bucket * r_bucket)
-                dic_dev, best = self._stereo_forward(dev(kps), dev(kps_r), dev(r_mask),
-                                                     dev(kks))
-                dic_dev['aux_idx'] = best.reshape(-1)
-                dic_dev = gather(dic_dev)
-            else:
-                self._count_dispatch((hi - lo) * m_bucket)
-                kps_dev, kks_dev = dev(kps), dev(kks)
-                dic_dev = gather(self._mono_forward(kps_dev, kks_dev))
-                if self._mc_on():
-                    epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
-                    if self.mesh is not None:
-                        epi_dev = gather_rows(epi_dev, self.mesh)
+            epi_dev = done = None
+            rows = (hi - lo) * m_bucket * (r_bucket if stereo else 1)
+            with torch.inference_mode():
+                self._count_dispatch(rows)
+                with trace.span('loco.h2d'):
+                    on_dev = [dev(arr) for arr in host]
+                with trace.span('loco.launch'):
+                    if stereo:
+                        dic_dev, best = self._stereo_forward(*on_dev)
+                        dic_dev['aux_idx'] = best.reshape(-1)
+                        dic_dev = gather(dic_dev)
+                    else:
+                        kps_dev, kks_dev = on_dev
+                        dic_dev = gather(self._mono_forward(kps_dev, kks_dev))
+                        if self._mc_on():
+                            epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
+                            if self.mesh is not None:
+                                epi_dev = gather_rows(epi_dev, self.mesh)
+                    if root and self.device.type == 'cuda':
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self.device))
+            if root:
+                passes = 1 + self.n_dropout if self._mc_on() else 1
+                mine = range(lo, min(hi, n_img))
+                useful = (sum(counts[i] * counts_r[i] for i in mine) if stereo
+                          else sum(counts[i] for i in mine))
+                root.set(rows_useful=useful * passes, rows_run=rows * passes,
+                         h2d_copies=len(host))
 
         def finalize():
-            dic = _to_host(dic_dev)
-            epi = None if epi_dev is None else epi_dev.cpu().numpy()
-            outs = []
-            for i in range(n_img):
-                m = counts[i]
-                if m == 0:
-                    outs.append(None)
-                    continue
-                sl = slice(i * m_bucket, i * m_bucket + m)
-                dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
-                         for k, v in dic.items()}
-                dic_i['epi'] = [0.] * m if epi is None else epi[i, :m]
-                outs.append(dic_i)
+            with trace.span('loco.finalize', dispatch=root.dispatch) as fin:
+                with trace.span('loco.wait'):
+                    if done is not None:
+                        done.synchronize()
+                with trace.span('loco.d2h'):
+                    dic = _to_host(dic_dev)
+                    epi = None if epi_dev is None else epi_dev.cpu().numpy()
+                with trace.span('loco.unpack'):
+                    outs = []
+                    for i in range(n_img):
+                        m = counts[i]
+                        if m == 0:
+                            outs.append(None)
+                            continue
+                        sl = slice(i * m_bucket, i * m_bucket + m)
+                        dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
+                                 for k, v in dic.items()}
+                        dic_i['epi'] = [0.] * m if epi is None else epi[i, :m]
+                        outs.append(dic_i)
+                if fin:
+                    fin.set(d2h_copies=_n_copies(dic_dev) + (epi_dev is not None))
             return outs
 
         return finalize

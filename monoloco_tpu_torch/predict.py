@@ -19,7 +19,12 @@ The image size comes from the PNG or JPEG header (stdlib). matplotlib and
 Pillow are imported only when a figure is drawn: a json-only run needs
 neither, and a run that asks for a figure without them exits before any net
 is built. `--profile DIR` writes a torch.profiler Chrome trace of the run
-into DIR.
+into DIR (`predict_trace.json`), and beside it `predict_spans.json`: the
+engine's spans of the run (`utils/trace.py`; nanoseconds of `time.time_ns()`,
+the clock of the Chrome trace's events, whose `ts` counts microseconds from
+its `baseTimeNanoseconds`), their counters summed, and the
+device's idle seconds put down to the span the host was in
+(`trace.idle_by_span`).
 
 The poses of an image come from a pifpaf JSON beside it (`<image>.pifpaf.json`,
 `<image>.predictions.json`) or in `--json_dir`; without one, OpenPifPaf runs
@@ -45,6 +50,7 @@ import torch
 from .activity import show_activities
 from .network import Loco, factory_for_gt, load_calibration, preprocess_pifpaf
 from .ops import launches
+from .utils import trace
 from .visuals.printer import Printer
 
 LOG = logging.getLogger(__name__)
@@ -224,7 +230,9 @@ def predict(args):
     """Run prediction; returns the Loco engine, whose dispatch counters say
     which MLP path the run took (None under --mode keypoints). With
     args.profile, the run is traced by torch.profiler (CUDA activity too
-    when it runs on a card) into <profile>/predict_trace.json."""
+    when it runs on a card) into <profile>/predict_trace.json, and the
+    engine's spans of the run, their counters and the device's idle time by
+    span go to <profile>/predict_spans.json."""
     args = factory_from_args(args)
     if not getattr(args, 'profile', None):
         return _predict_run(args)
@@ -232,6 +240,7 @@ def predict(args):
     on_card = torch.cuda.is_available() and not args.disable_cuda
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     os.makedirs(args.profile, exist_ok=True)
+    t0 = time.time_ns()
     with profile(activities=activities) as prof:
         net = _predict_run(args)
         if on_card:
@@ -239,6 +248,13 @@ def predict(args):
     path = os.path.join(args.profile, 'predict_trace.json')
     prof.export_chrome_trace(path)
     print(f"torch.profiler trace: {path}")
+    spans = [r for r in trace.records() if r['start_ns'] >= t0]
+    path = os.path.join(args.profile, 'predict_spans.json')
+    with open(path, 'w') as f:
+        json.dump({'clock': 'time.time_ns', 'spans': spans, 'counters': trace.counters(spans),
+                   'dropped': trace.dropped(),
+                   'idle_by_span_s': trace.idle_by_span(prof, spans)}, f)
+    print(f"engine spans: {path}")
     return net
 
 

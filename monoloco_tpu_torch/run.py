@@ -121,7 +121,9 @@ def cli(argv=None):
     add('--webcam', help='webcam streaming', action='store_true')
     add('--camera', help='webcam device index, or a video file path',
         type=_camera_source, default=0)
-    add('--profile', help='directory for a torch.profiler trace of the run')
+    add('--profile', help='directory for a torch.profiler trace of the run (predict_trace.json) '
+                          'and the engine\'s spans, counters and device idle time by span '
+                          '(predict_spans.json)')
     add('--calibration', type=str, default='custom',
         help='camera calibration: custom, nuscenes, or kitti')
     add('--focal_length', type=float, default=5.7,
