@@ -11,7 +11,7 @@ detections.
 MLP routing (`_mlp_forward`), as in the JAX package off the TPU:
  - default / float32: the plain f32 folded forward (`FoldedLoco`, torch.matmul);
  - int8: the fused dynamic-int8 kernel (ops/fused_mlp.py) for dispatches of
-   at least `_INT8_MIN_ROWS` padded rows, the f32 path below that;
+   at least `_INT8_MIN_ROWS` MLP rows, the f32 path below that;
  - bfloat16: the K1-bf16 kernel (`fused_loco_forward` on a bf16 pack made
    once at init) for every dispatch of a Loco net with hidden % 128 == 0;
    the legacy nets and other widths run `folded_forward` on bf16-rounded
@@ -26,13 +26,14 @@ smallest being 16 (1.04-1.26x up to 2048 rows, where both are bound by the
 host's launches; 1.95-2.40x at 8192, 7.1x at 131072). The JAX package's 512 was a TPU v5e's
 dyn8/bf16 crossover. MONOLOCO_TPU_INT8_MIN_ROWS overrides it.
 
-A stereo dispatch has m x r rows (B x m x r in a batch), so it crosses the
-floor sooner than a mono one.
-
 Detection counts pad to power-of-two buckets (`_bucket`): the JAX package
-needs them to bound recompiles, and here routing reads the padded row count,
-so both engines route a given batch the same way. Stereo pads m and r to
-their buckets separately; padded right columns cannot win the aux argmax.
+needs them to bound recompiles, and the port's host arrays keep its layout.
+Stereo pads m and r to their buckets separately, but the MLP runs only each
+image's real L x R pairs, packed end to end and rounded up to the kernels'
+128-row tile (`_flat_rows`, at least one tile); routing reads that row
+count, so at the default floor every stereo dispatch runs dyn8 under int8,
+as with the padded grid (at least 4 x 4). The aux argmax runs
+over each image's (m, r) grid with the padded cells at -inf.
 
 MC-dropout epistemic uncertainty (`n_dropout > 0`, mono nets; stereo keeps
 epi at zeros, as in the JAX package) is one more dispatch after the main
@@ -49,7 +50,7 @@ vmap over images make them. `forward`, `forward_batch` and
 Under a mesh (`mesh=`, a `parallel.Mesh`; every rank builds the same Loco
 and calls `forward_batch_async` with the same images), the image bucket
 pads to a multiple of the data ranks, each rank runs its share of the
-images through the same routing (so dyn8 from 16 padded rows a rank, and
+images through the same routing (so dyn8 from 16 MLP rows a rank, and
 K1-bf16 under bf16), and the outputs are all-gathered over the data group:
 every rank gets what one device computes. The dispatch counters count the
 rows of a rank's share, as the JAX engine's `_dispatch_shard_factor`. A
@@ -81,7 +82,9 @@ from ..utils import trace
 from ..utils.precision import serve_storage, serving_precision, tf32_matmuls
 from .decode import (extract_outputs, extract_outputs_mono, laplace_sampling,
                      laplace_uniforms, unnormalize_bi)
-from .preprocess import preprocess_monoloco, preprocess_monstereo
+from .preprocess import preprocess_monoloco
+# Importable from here, as from the JAX engine.
+from .preprocess import preprocess_monstereo  # noqa: F401
 # The unfolded forwards, importable from here as from the JAX engine, which
 # runs its MC-dropout passes on them (the port runs those on the folded net).
 from ..models import loco_forward, monoloco_forward  # noqa: F401
@@ -92,6 +95,8 @@ N_SAMPLES = 100
 LINEAR_SIZE_MONO = 256
 # The measured dyn8-vs-f32 crossover on the H100 (module docstring).
 _INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '16'))
+# The row tile of the MLP kernels (`kBM` in ops/csrc/wgmma_layer.cu).
+_ROW_TILE = 128
 
 
 def _int8_routes(weights, n_rows):
@@ -128,6 +133,12 @@ def _bucket(n, minimum=4):
     while b < n:
         b *= 2
     return b
+
+
+def _flat_rows(n_pairs):
+    """The MLP rows of a stereo dispatch of n_pairs real pairs: rounded up
+    to the kernels' row tile, at least one tile."""
+    return max(_ROW_TILE, -(-n_pairs // _ROW_TILE) * _ROW_TILE)
 
 
 def _pad_rows(arr, size):
@@ -221,7 +232,7 @@ class Loco:
         if self.precision == 'bfloat16' and kernel_width:
             self.mlp_weights['packed_bf16'] = pack_folded_weights(self.folded, torch.bfloat16)
         # Which MLP path each dispatch ran: the int8 kernel only engages at
-        # >= _INT8_MIN_ROWS padded rows. One count a call of `forward` or
+        # >= _INT8_MIN_ROWS MLP rows. One count a call of `forward` or
         # `forward_batch_async`, its MC dispatch included, as the JAX engine
         # counts them; serve's /healthz and /metrics export both.
         self.n_dispatches = 0
@@ -247,23 +258,40 @@ class Loco:
             return extract_outputs_mono(raw)
         return extract_outputs(raw)
 
-    def _stereo_forward(self, kps_l, kps_r, r_mask, kk):
+    def _stereo_forward(self, kps_l, kps_r, poses, kk, n_pairs):
         """An image batch on the device: left (B, m, 3, 17), right (B, r, 3,
-        17), r_mask (B, r) bool, kk (B, 3, 3) -> (the decoded output dict over
-        the B*m left poses, each with its chosen pairing, and the (B, m)
-        index of the right pose chosen). One MLP call over the B*m*r pairs;
-        the JAX package vmaps the same program over the images."""
+        17), poses (B, m + r) bool (which left, then which right poses are
+        real), kk (B, 3, 3), and n_pairs, the sum over the images of their
+        real left x right pairs -> (the decoded output dict over the B*m left
+        poses, each with its chosen pairing, and the (B, m) index of the
+        right pose chosen). One MLP call over the real pairs only, packed
+        image by image in (left, right) order, each row [inp_l_i, inp_l_i -
+        inp_r_j] as `preprocess_monstereo` makes it; the rows up to
+        `_flat_rows(n_pairs)` are zeros, and no output of theirs is used.
+        The JAX package vmaps its padded m x r program over the images."""
         b, m, r = kps_l.shape[0], kps_l.shape[1], kps_r.shape[1]
-        inputs, _ = preprocess_monstereo(kps_l, kps_r, kk)          # (B, m*r, 68)
-        raw = _mlp_forward(self.mlp_weights, inputs.reshape(b * m * r, -1), 'loco')
-        out4 = raw.reshape(b, m, r, raw.shape[-1])
-        # Padded right columns cannot win the aux argmax; the first maximum
-        # wins a tie, as in jnp.argmax.
-        aux = torch.where(r_mask[:, None, :], out4[..., -1],
-                          torch.full_like(out4[..., -1], -math.inf))
+        inp_l = preprocess_monoloco(kps_l, kk).reshape(b * m, -1)
+        inp_r = preprocess_monoloco(kps_r, kk).reshape(b * r, -1)
+        valid = (poses[:, :m, None] & poses[:, None, m:]).reshape(-1)   # (B m r)
+        ends = torch.cumsum(valid, 0)
+        # Flat row p holds the grid cell of the (p + 1)-th real pair; the
+        # rows after the last one point past the grid and are zeroed below.
+        cell = torch.searchsorted(ends, torch.arange(_flat_rows(n_pairs), device=ends.device),
+                                  right=True).clamp_(max=b * m * r - 1)
+        left = cell // r
+        right = left // m * r + cell % r
+        x_l = inp_l[left]
+        inputs = torch.cat([x_l, x_l - inp_r[right]], dim=1)
+        inputs[n_pairs:] = 0
+        raw = _mlp_forward(self.mlp_weights, inputs, 'loco')
+        # Each grid cell's flat row (a padded cell's is any real row's, and
+        # its aux is -inf, so it never wins); the first maximum wins a tie,
+        # as in jnp.argmax.
+        row = (ends - 1).clamp_(min=0)
+        aux = torch.where(valid, raw[row, -1], -math.inf).reshape(b, m, r)
         best = torch.argmax(aux, dim=2)                              # (B, m)
-        selected = torch.take_along_dim(out4, best[:, :, None, None], dim=2)[:, :, 0, :]
-        return extract_outputs(selected.reshape(b * m, -1)), best
+        chosen = torch.take_along_dim(row.reshape(b, m, r), best[:, :, None], dim=2)
+        return extract_outputs(raw[chosen.reshape(-1)]), best
 
     def draw_mc(self, rows):
         """(masks, u) for one MC dispatch over images of `rows` padded
@@ -323,13 +351,13 @@ class Loco:
                     kps_r = np.asarray(keypoints_r, np.float32)
                 r = kps_r.shape[0]
                 br = _bucket(r)
-                r_mask = np.zeros((1, br), bool)
-                r_mask[0, :r] = True
-                self._count_dispatch(bm * br)
+                poses = np.zeros((1, bm + br), bool)
+                poses[0, :m] = poses[0, bm:bm + r] = True
+                self._count_dispatch(_flat_rows(m * r))
                 dic, best = self._stereo_forward(
                     torch.from_numpy(_pad_rows(kps, bm)[None]).to(self.device),
                     torch.from_numpy(_pad_rows(kps_r, br)[None]).to(self.device),
-                    torch.from_numpy(r_mask).to(self.device), kk_dev[None])
+                    torch.from_numpy(poses).to(self.device), kk_dev[None], m * r)
                 dic['aux_idx'] = best[0]
             else:
                 self._count_dispatch(bm)
@@ -367,8 +395,9 @@ class Loco:
         holding `loco.bucket` (the buckets and the padded host arrays),
         `loco.h2d` (the blocking copies to the device) and `loco.launch`
         (the forward, the gather and the MC passes, enqueued); its counters
-        are `rows_useful` (sum L, or L x R, a frame), `rows_run` (the padded
-        bucket, B m or B m r), both x (1 + n_dropout) with MC, and
+        are `rows_useful` (sum L, or L x R, a frame), `rows_run` (the rows
+        the MLP runs: the padded bucket B m, or the flat pairs rounded to the
+        row tile), both x (1 + n_dropout) with MC, and
         `h2d_copies`. finalize() is a `loco.finalize` span of the same
         dispatch id, counting `d2h_copies`, holding `loco.wait`, `loco.d2h`
         and `loco.unpack` (the per-image slicing). `loco.wait` is this
@@ -410,17 +439,19 @@ class Loco:
                     counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
                     r_bucket = _bucket(max(max(counts_r), 1))
                     kps_r = np.zeros((b_bucket, r_bucket, 3, 17), np.float32)
-                    r_mask = np.zeros((b_bucket, r_bucket), bool)
+                    # Which poses are real: an image's left ones, then its right.
+                    poses = np.zeros((b_bucket, m_bucket + r_bucket), bool)
                     for i in range(n_img):
+                        poses[i, :counts[i]] = True
                         if counts_r[i]:
                             kps_r[i, :counts_r[i]] = np.asarray(keypoints_r_list[i],
                                                                 np.float32)
-                            r_mask[i, :counts_r[i]] = True
+                            poses[i, m_bucket:m_bucket + counts_r[i]] = True
                         elif counts[i]:
                             # No right detections: the first left pose stands in.
                             kps_r[i, 0] = kps[i, 0]
-                            r_mask[i, 0] = True
-                    host = (kps, kps_r, r_mask, kks)
+                            poses[i, m_bucket] = True
+                    host = (kps, kps_r, poses, kks)
                 else:
                     host = (kps, kks)
 
@@ -435,14 +466,19 @@ class Loco:
                             else gather_rows(v, self.mesh)) for k, v in dic.items()}
 
             epi_dev = done = None
-            rows = (hi - lo) * m_bucket * (r_bucket if stereo else 1)
+            mine = range(lo, min(hi, n_img))
+            if stereo:
+                n_pairs = sum(counts[i] * max(counts_r[i], 1) for i in mine)
+                rows = _flat_rows(n_pairs)
+            else:
+                rows = (hi - lo) * m_bucket
             with torch.inference_mode():
                 self._count_dispatch(rows)
                 with trace.span('loco.h2d'):
                     on_dev = [dev(arr) for arr in host]
                 with trace.span('loco.launch'):
                     if stereo:
-                        dic_dev, best = self._stereo_forward(*on_dev)
+                        dic_dev, best = self._stereo_forward(*on_dev, n_pairs)
                         dic_dev['aux_idx'] = best.reshape(-1)
                         dic_dev = gather(dic_dev)
                     else:
@@ -457,7 +493,6 @@ class Loco:
                         done.record(torch.cuda.current_stream(self.device))
             if root:
                 passes = 1 + self.n_dropout if self._mc_on() else 1
-                mine = range(lo, min(hi, n_img))
                 useful = (sum(counts[i] * counts_r[i] for i in mine) if stereo
                           else sum(counts[i] for i in mine))
                 root.set(rows_useful=useful * passes, rows_run=rows * passes,

@@ -42,6 +42,8 @@ A wrong kernel misses every one of these by orders of magnitude. A row never
 depends on the rows around it (bit for bit).
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -385,6 +387,46 @@ def test_stereo_engine_int8_against_float32(cuda_device, monkeypatch):
     d8, d32 = outs['int8']['d'][same], outs['float32']['d'][same]
     assert np.isfinite(d8).all()
     assert np.abs(d8 - d32).mean() / np.abs(d32).mean() < 0.02
+
+
+@pytest.mark.parametrize('precision', ['int8', 'bfloat16'])
+def test_stereo_engine_flat_pairs_are_the_padded_grid_bit_for_bit(cuda_device, monkeypatch,
+                                                                  precision):
+    """dyn8 and K1-bf16 compute each row alone, so the engine's flat stereo
+    dispatch (each frame's real L x R pairs only) gives the padded-grid
+    evaluation's outputs and `aux_idx` bit for bit, on crowd chunks (64
+    frames, Poisson 22.64 people) and on the edge mixes of
+    tests/torch_stereo_grid.py (ties included); every dispatch runs the
+    precision's kernel, and a steady chunk makes no synchronization beyond
+    the 17 of the padded grid (4 copies in, 2 in `torch.linalg.inv`, 11
+    copies out)."""
+    import torch_stereo_grid as grid
+    from monoloco_tpu_torch.network import Loco
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
+    params, bn = init_loco_params(2, 68, 10, 1024, 3)
+    params['w_fin']['b'][0:3] += torch.tensor([np.pi / 2, np.pi / 2, 15.0])
+    net = Loco((params, bn), mode='stereo', device=cuda_device)
+    key = 'dyn8_mlp' if precision == 'int8' else 'fused_mlp_bf16'
+    crowds = [grid.crowd(64, seed=s) for s in (0, 1)]
+    mixes = [grid.frames(spec, seed=i) for i, spec in enumerate(grid.MIXES.values())]
+    for args in crowds + mixes:
+        before = ops.launches[key]
+        outs = net.forward_batch(*args)
+        ref = grid.padded_grid(net, *args)
+        torch.cuda.synchronize()
+        assert ops.launches[key] == before + 2
+        grid.assert_same(outs, ref, exact=True)
+    np.testing.assert_array_equal(net.forward_batch(*mixes[-1])[0]['aux_idx'], 0)
+    assert net.n_dispatches_int8 == (net.n_dispatches if precision == 'int8' else 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            net.forward_batch_async(*crowds[0])()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if 'called a synchronizing' in str(w.message)]
+    assert 0 < len(syncs) <= 17, [str(w.message) for w in syncs]
 
 
 def _mono_keypoints(m, seed):

@@ -41,7 +41,9 @@ from monoloco_tpu_torch.network import (Loco, cluster_outputs, engine, filter_ou
                                         median_disparity, preprocess_monstereo)
 from monoloco_tpu_torch.ops import dyn8_forward_plain
 from monoloco_tpu_torch.ops.quant import synthetic_calibration_inputs
-from monoloco_tpu_torch.utils import serving_precision
+from monoloco_tpu_torch.utils import serving_precision, trace
+
+import torch_stereo_grid as grid
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KK = [[718.3351, 0., 600.3891], [0., 718.3351, 181.5122], [0., 0., 1.]]
@@ -199,7 +201,7 @@ def test_cluster_and_filter_outputs_equal_jax(clusters):
 @pytest.mark.parametrize('m', [1, 4, 7])
 def test_stereo_forward_matches_jax(nets, m, r):
     """Per image; r = 0 passes no right poses (the first left pose stands
-    in). The dispatch counts at the padded m x r rows."""
+    in). One dispatch an image."""
     net, jnet = nets
     kps = _keypoints(m, seed=m)
     kps_r = None if r == 0 else _right_of(_keypoints(r, seed=r + 30), seed=r)
@@ -247,15 +249,18 @@ def test_stereo_padding_invariance(nets):
 
 
 def test_stereo_batch_counts_padded_pairs(monkeypatch):
-    """The batch counts at b_bucket * m_bucket * r_bucket rows, and an int8
-    engine routes to dyn8 there (the plain version on the CPU)."""
+    """The dispatch counts at its flat pairs rounded up to the 128-row tile
+    (L x R a frame, L x 1 where the first left pose stands in), not at the
+    padded b x m x r grid, and an int8 engine routes to dyn8 there (the
+    plain version on the CPU)."""
     monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'int8')
-    monkeypatch.setattr(engine, '_INT8_MIN_ROWS', 3 * 4 * 8)     # b 4 x m 4 x r 8 = 128
+    monkeypatch.setattr(engine, '_INT8_MIN_ROWS', 129)
     net = Loco(_jax_tree(jax.random.PRNGKey(5), 68, 10, 128, 2), mode='stereo', device='cpu')
-    kps = [_keypoints(2, seed=s) for s in range(3)]
-    net.forward_batch(kps, [KK] * 3, [_keypoints(5, seed=9), None, _keypoints(1, seed=8)])
+    kps = [_keypoints(12, seed=s) for s in range(3)]
+    # 12 x 5 + 12 x 1 + 12 x 5 = 132 pairs: 256 rows (120 without the stand-in: 128).
+    net.forward_batch(kps, [KK] * 3, [_keypoints(5, seed=9), None, _keypoints(5, seed=8)])
     assert (net.n_dispatches, net.n_dispatches_int8) == (1, 1)
-    net.forward(kps[0], KK, keypoints_r=_keypoints(5, seed=9))      # 4 x 8 = 32 rows
+    net.forward(kps[0], KK, keypoints_r=_keypoints(5, seed=9))      # 60 pairs: 128 rows
     assert (net.n_dispatches, net.n_dispatches_int8) == (2, 1)
 
 
@@ -284,6 +289,64 @@ def test_int8_stereo_routes_to_the_plain_dyn8_version(monkeypatch):
     ref = Loco(model, mode='stereo', device='cpu').forward(kps, KK, keypoints_r=kps_r)
     assert not np.array_equal(out['d'], ref['d'])
     np.testing.assert_allclose(out['d'], ref['d'], rtol=0.05, atol=0.05)
+
+
+# --- the flat stereo dispatch ---------------------------------------------
+
+def _tile_rows(n_pairs):
+    return max(128, -(-n_pairs // 128) * 128)
+
+
+@pytest.mark.parametrize('mix', list(grid.MIXES))
+def test_flat_stereo_dispatch_matches_jax_and_the_padded_grid(nets, mix):
+    """The batched stereo dispatch runs each frame's real L x R pairs only,
+    packed flat: every real left pose's outputs and `aux_idx` match the JAX
+    engine (its padded m x r program) and the padded-grid evaluation of the
+    same batch (`torch_stereo_grid.padded_grid`); of two equal right poses
+    the first wins; the MLP runs sum L x R rows rounded up to the 128-row
+    tile, with 4 + 11 blocking copies."""
+    net, jnet = nets
+    left, kks, right = grid.frames(grid.MIXES[mix], seed=len(mix))
+    trace.reset()
+    trace.enable()
+    try:
+        outs = net.forward_batch(left, kks, right)
+    finally:
+        trace.disable()
+    recs = {r['name']: r['attrs'] for r in trace.records()}
+    trace.reset()
+    grid.assert_same(outs, grid.padded_grid(net, left, kks, right), exact=False, tol=TOL)
+    refs = jnet.forward_batch(left, kks, right)
+    for ours, ref, k, kk, k_r in zip(outs, refs, left, kks, right):
+        assert (ours is None) == (ref is None)
+        if ref is not None:
+            # The JAX batch returns no aux_idx; its per-image forward does.
+            ours = dict(ours)
+            ref_idx = jnet.forward(k, kk, keypoints_r=k_r)['aux_idx']
+            np.testing.assert_array_equal(ours.pop('aux_idx'), np.asarray(ref_idx))
+            _assert_stereo_close(ours, ref)
+    if mix == 'tie':
+        np.testing.assert_array_equal(outs[0]['aux_idx'], 0)
+    useful = sum(len(k) * (0 if r is None else len(r)) for k, r in zip(left, right))
+    assert recs['loco.dispatch'] == {'rows_useful': useful,
+                                     'rows_run': _tile_rows(grid.n_pairs(left, right)),
+                                     'h2d_copies': 4}
+    assert recs['loco.finalize'] == {'d2h_copies': 11}
+
+
+@pytest.mark.parametrize('precision', ['int8', 'bfloat16'])
+def test_flat_stereo_dispatch_on_the_plain_kernels_is_the_padded_grid(monkeypatch, precision):
+    """Under int8 (dyn8) and bfloat16 (K1-bf16), their plain versions on the
+    CPU, the flat dispatch matches the padded-grid evaluation on every mix
+    and a crowd chunk, and every dispatch keeps its route."""
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
+    net = Loco(_jax_tree(jax.random.PRNGKey(7), 68, 10, 128, 2, ahead=True), mode='stereo',
+               device='cpu')
+    batches = [grid.frames(spec, seed=i) for i, spec in enumerate(grid.MIXES.values())]
+    for args in batches + [grid.crowd(16, seed=3)]:
+        grid.assert_same(net.forward_batch(*args), grid.padded_grid(net, *args), exact=False,
+                         tol=TOL)
+    assert net.n_dispatches_int8 == (net.n_dispatches if precision == 'int8' else 0)
 
 
 def test_median_disparity_matches_jax():

@@ -36,7 +36,7 @@ TREE = {'loco.dispatch': None, 'loco.bucket': 'loco.dispatch', 'loco.h2d': 'loco
         'loco.launch': 'loco.dispatch', 'loco.finalize': None, 'loco.wait': 'loco.finalize',
         'loco.d2h': 'loco.finalize', 'loco.unpack': 'loco.finalize'}
 # (rows_useful, rows_run, h2d_copies, d2h_copies) of the batch.
-COUNTS = {'stereo': (3 * 2 + 5 * 6, 4 * 8 * 8, 4, 11),
+COUNTS = {'stereo': (3 * 2 + 5 * 6, 128, 4, 11),
           'mono_mc': ((3 + 5) * (1 + N_DROPOUT), 4 * 8 * (1 + N_DROPOUT), 2, 10)}
 
 
