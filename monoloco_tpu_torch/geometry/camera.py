@@ -42,7 +42,10 @@ def pixel_to_camera(uv, kk, z_met):
         uv = uv.transpose(-1, -2)
     ones = torch.ones(uv.shape[:-1] + (1,), dtype=uv.dtype, device=uv.device)
     uv1 = torch.cat([uv, ones], dim=-1)
-    kk_inv = torch.linalg.inv(kk)
+    # `inv` is `inv_ex` plus a check of its info that syncs with the device;
+    # the factorization is the same. A singular K gives non-finite values, as
+    # `jnp.linalg.inv` does in the JAX package, instead of raising.
+    kk_inv = torch.linalg.inv_ex(kk).inverse
     return torch.matmul(uv1, kk_inv.transpose(-1, -2)) * z_met
 
 

@@ -60,8 +60,11 @@ as the JAX engine does (its Pallas kernel has no partitioning rule over the
 model axis). `forward`, one image, computes locally on every rank.
 """
 
+import bisect
+import functools
 import math
 import os
+import threading
 import warnings
 from collections import defaultdict
 
@@ -160,6 +163,185 @@ def _n_copies(dic):
     return sum(len(v) if k == 'yaw' else 1 for k, v in dic.items())
 
 
+# Arrays laid out in one staging block start on multiples of this, the
+# caching device allocator's alignment, so a view of the block on the device
+# is aligned as a fresh tensor is and every kernel takes the same path.
+_ALIGN = 512
+
+
+def _layout(specs):
+    """Byte offsets of arrays `specs` ((shape, torch dtype) each) laid end to
+    end in one block, each at a multiple of `_ALIGN`, and the block's size."""
+    offsets, size = [], 0
+    for shape, dtype in specs:
+        offsets.append(size)
+        size += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return offsets, size
+
+
+@functools.cache
+def _numpy_dtype(dtype):
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _views(block, specs, offsets):
+    """The arrays `specs` as views of the uint8 `block` at `offsets`: tensors
+    of a tensor, numpy arrays of a numpy array (no torch op, so none for the
+    profiler to record on the host's path)."""
+    views = []
+    for (shape, dtype), o in zip(specs, offsets):
+        part = block[o:o + math.prod(shape) * dtype.itemsize]
+        views.append(part.view(_numpy_dtype(dtype) if isinstance(part, np.ndarray) else dtype)
+                     .reshape(shape))
+    return views
+
+
+def _pow2(size):
+    return 1 << max(size - 1, 1).bit_length()
+
+
+class _Staging:
+    """The host memory of one engine's staged dispatches, reused from chunk
+    to chunk. Buffers: uint8 tensors from PyTorch's caching host allocator
+    (pinned on a card), each lent to one dispatch and given back, with the
+    event after its last copy, when the dispatch's finalize has read it or
+    its closure is dropped; one is lent again only once that event has
+    completed, so the device never reads or writes a buffer the host
+    refills. Slabs: ordinary numpy memory under one chunk's results
+    (`_Lease`), back once the last result array is gone. So a steady loop
+    allocates nothing new, pinned or not (d chunks in flight, finalized in
+    order, hold d chunks' buffers), and the host does not fault fresh pages
+    in on every chunk. Sizes round up to a power of two, so chunks of similar
+    buckets share them; at most `cap` buffers and `cap` slabs wait for
+    reuse, the smallest first. A reentrant lock guards both: closures may be
+    finalized, and results dropped, on any thread, and a collection run
+    inside a locked section may give back what it frees."""
+
+    cap = 8
+
+    def __init__(self, pin):
+        self.pin = pin
+        self.idle = []           # (size, buffer, event or None), by size
+        self.slabs = []          # numpy uint8 arrays, by size
+        self.lent = 0
+        self._lock = threading.RLock()
+
+    def take(self, size):
+        with self._lock:
+            self.lent += 1
+            for i, (n, buf, done) in enumerate(self.idle):
+                if n >= size and (done is None or done.query()):
+                    del self.idle[i]
+                    return buf
+        return torch.empty(_pow2(size), dtype=torch.uint8, pin_memory=self.pin)
+
+    def give(self, bufs, done):
+        with self._lock:
+            self.lent -= len(bufs)
+            for buf in bufs:
+                if len(self.idle) < self.cap:
+                    bisect.insort(self.idle, (buf.numel(), buf, done), key=lambda e: e[0])
+
+    def lease(self, size):
+        """Ordinary host memory of at least `size` bytes (a `_Lease`)."""
+        with self._lock:
+            for i, slab in enumerate(self.slabs):
+                if slab.size >= size:
+                    return _Lease(self, self.slabs.pop(i))
+        return _Lease(self, np.empty(_pow2(size), np.uint8))
+
+    def restore(self, slab):
+        with self._lock:
+            if len(self.slabs) < self.cap:
+                bisect.insort(self.slabs, slab, key=lambda a: a.size)
+
+
+class _Lease:
+    """A slab of ordinary host memory under one chunk's results. Every array
+    made from it (`np.asarray`, then views) keeps it alive; when the last is
+    gone the slab goes back to its `_Staging`. So results own their memory,
+    and no later chunk writes into it while one of them lives."""
+
+    def __init__(self, staging, slab):
+        self.staging, self.slab = staging, slab
+
+    @property
+    def __array_interface__(self):
+        return self.slab.__array_interface__
+
+    def __del__(self):
+        self.staging.restore(self.slab)
+
+
+class _HostCopy:
+    """A dispatch's outputs on their way to the host, enqueued right after its
+    launches. The leaves (each tensor of the output dict, 'yaw' as two, and
+    the MC 'epi') of a dtype go flat, each in its own row-major order, end to
+    end in one device block; each block is copied without blocking into one
+    host buffer from `staging` behind an event. `held` are the dispatch's
+    other staging buffers (its input block), given back with this one.
+    `wait()` syncs the event; `read()` copies the buffer in one piece into
+    ordinary memory leased from `staging`, so that no result aliases it,
+    gives the buffers back, and returns each leaf as a view of that copy in
+    the leaf's shape and dtype. Dropped unread, it gives them back with the
+    event pending."""
+
+    def __init__(self, dic, epi, device, staging, held):
+        leaves = [(k, j, t) for k, v in dic.items()
+                  for j, t in (enumerate(v) if k == 'yaw' else ((None, v),))]
+        if epi is not None:
+            leaves.append(('epi', None, epi))
+        groups, self.leaves = {}, []
+        for key, j, t in leaves:
+            parts = groups.setdefault(t.dtype, [])
+            e0 = sum(p.numel() for p in parts)
+            self.leaves.append((key, j, list(groups).index(t.dtype), e0, e0 + t.numel(),
+                                tuple(t.shape)))
+            parts.append(t.reshape(-1))
+        blocks = [torch.cat(parts) if len(parts) > 1 else parts[0] for parts in groups.values()]
+        self.specs = [(tuple(b.shape), b.dtype) for b in blocks]
+        self.offsets, self.size = _layout(self.specs)
+        self.buf = staging.take(self.size)
+        for view, block in zip(_views(self.buf, self.specs, self.offsets), blocks):
+            view.copy_(block, non_blocking=True)
+        self.done = None
+        if device.type == 'cuda':
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(device))
+        self.staging, self.held, self.host = staging, held + [self.buf], None
+
+    def wait(self):
+        if self.done is not None:
+            self.done.synchronize()
+
+    def read(self):
+        """(the output dict, epi or None) in ordinary numpy arrays."""
+        if self.host is None:
+            raw = np.asarray(self.staging.lease(self.size))[:self.size]
+            np.copyto(raw, self.buf.numpy()[:self.size])
+            flat = _views(raw, self.specs, self.offsets)
+            dic, epi = {}, None
+            for key, j, g, e0, e1, shape in self.leaves:
+                arr = flat[g][e0:e1].reshape(shape)
+                if key == 'epi':
+                    epi = arr
+                elif j is None:
+                    dic[key] = arr
+                else:
+                    dic[key] = dic.get(key, ()) + (arr,)
+            self.host = dic, epi
+            self._give_back()
+        return self.host
+
+    def _give_back(self):
+        if getattr(self, 'held', None) is not None:
+            self.staging.give(self.held, self.done)
+            self.held = self.buf = None
+
+    def __del__(self):
+        self._give_back()
+
+
 def default_device():
     """The card. Without one this raises: the CPU runs only when asked for
     (`device='cpu'`, `predict --disable-cuda`)."""
@@ -237,6 +419,11 @@ class Loco:
         # counts them; serve's /healthz and /metrics export both.
         self.n_dispatches = 0
         self.n_dispatches_int8 = 0
+        # `forward_batch_async` stages its copies (one pinned block in, one
+        # out, neither blocking the host) on a card without a mesh; on the
+        # CPU and under a mesh it copies array by array, blocking.
+        self.staged = self.device.type == 'cuda' and mesh is None
+        self.staging = _Staging(pin=self.device.type == 'cuda')
 
     def _count_dispatch(self, n_rows):
         self.n_dispatches += 1
@@ -391,21 +578,41 @@ class Loco:
         chunk or write files before finalize() waits for this one. Images pad
         to shared detection buckets, as in the JAX package.
 
+        On a card without a mesh (`staged`) nothing here blocks the host on
+        the device. The padded arrays are numpy views of one zeroed pinned
+        block, copied to the device without blocking; the outputs are
+        enqueued for the host right after the launches, into one pinned
+        buffer behind an event of this dispatch's own (`_HostCopy`). So
+        finalize() waits for this chunk's work and copies only, never for a
+        chunk dispatched after it. Closures may be finalized in any order,
+        on any thread, or dropped: either gives the two buffers back to the
+        engine's pool (`_Staging`), which lends them again once their copies
+        are done, so a steady loop allocates no pinned memory. Results own
+        their memory: no returned array aliases a buffer that a later
+        dispatch reuses. On the CPU and under a mesh the arrays go one by
+        one, blocking.
+
         With tracing on (`utils/trace.py`) the call is a `loco.dispatch` span
         holding `loco.bucket` (the buckets and the padded host arrays),
-        `loco.h2d` (the blocking copies to the device) and `loco.launch`
-        (the forward, the gather and the MC passes, enqueued); its counters
-        are `rows_useful` (sum L, or L x R, a frame), `rows_run` (the rows
-        the MLP runs: the padded bucket B m, or the flat pairs rounded to the
-        row tile), both x (1 + n_dropout) with MC, and
-        `h2d_copies`. finalize() is a `loco.finalize` span of the same
-        dispatch id, counting `d2h_copies`, holding `loco.wait`, `loco.d2h`
-        and `loco.unpack` (the per-image slicing). `loco.wait` is this
-        dispatch's own device work: on a card, a sync on an event recorded
-        after its launches, made only while tracing. `loco.d2h` is the
-        blocking copies to the host, which also wait behind whatever was
-        queued on the stream after that work (the next chunk, with two in
-        flight).
+        `loco.h2d` (the copies to the device: staged, one enqueued copy of
+        the block; else the blocking copies) and `loco.launch` (the forward,
+        the gather and the MC passes, and staged the outputs' copies to the
+        host, all enqueued); its counters are `rows_useful` (sum L, or L x
+        R, a frame), `rows_run` (the rows the MLP runs: the padded bucket B
+        m, or the flat pairs rounded to the row tile), both x (1 +
+        n_dropout) with MC, and `h2d_copies`. finalize() is a
+        `loco.finalize` span of the same dispatch id, counting `d2h_copies`,
+        holding `loco.wait`, `loco.d2h` and `loco.unpack` (the per-image
+        slicing). `loco.wait` is this dispatch's own device work: staged, a
+        sync on the event after its copies to the host, made on every call;
+        else, on a card, a sync on an event recorded after its launches,
+        made only while tracing. `loco.d2h` is, staged, the copy out of the
+        pinned buffer into ordinary arrays; else the blocking copies to the
+        host, which also wait behind whatever was queued on the stream after
+        this work. `h2d_copies` and `d2h_copies` count the copies that block
+        the host on the device: 0 and 0 staged; else one a padded array and
+        one an output tensor ('yaw' two, MC's 'epi' one), 4 and 11 for
+        stereo, 2 and 10 for mono with MC.
         """
         if self.net not in ('monoloco_pp', 'monoloco_p', 'monstereo'):
             raise ValueError("forward_batch supports the monoloco_pp, monoloco_p and "
@@ -414,6 +621,7 @@ class Loco:
         if n_img == 0:
             return lambda: []
         stereo = self.net == 'monstereo'
+        staged = self.staged
         with trace.span('loco.dispatch') as root:
             with trace.span('loco.bucket'):
                 counts = [0 if k is None else len(k) for k in keypoints_list]
@@ -426,21 +634,34 @@ class Loco:
                     b_bucket = max(b_bucket, dp)
                     b_bucket += (-b_bucket) % dp
                 lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, self.mesh)
-                kps = np.zeros((b_bucket, m_bucket, 3, 17), np.float32)
-                kks = np.zeros((b_bucket, 3, 3), np.float32)
+                specs = [((b_bucket, m_bucket, 3, 17), torch.float32),
+                         ((b_bucket, 3, 3), torch.float32)]
+                if stereo:
+                    if keypoints_r_list is None:
+                        keypoints_r_list = [None] * n_img
+                    counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
+                    r_bucket = _bucket(max(max(counts_r), 1))
+                    specs += [((b_bucket, r_bucket, 3, 17), torch.float32),
+                              ((b_bucket, m_bucket + r_bucket), torch.bool)]
+                if staged:
+                    # One zeroed host block (pinned on a card) holds every
+                    # array; the arrays are numpy views of it.
+                    offsets, size = _layout(specs)
+                    block = self.staging.take(size)
+                    raw = block.numpy()[:size]
+                    raw.fill(0)
+                    host = _views(raw, specs, offsets)
+                else:
+                    host = [torch.zeros(shape, dtype=dtype).numpy() for shape, dtype in specs]
+                kps, kks = host[0], host[1]
                 kks[:] = np.eye(3)
                 for i, (k, kk) in enumerate(zip(keypoints_list, kk_list)):
                     if counts[i]:
                         kps[i, :counts[i]] = np.asarray(k, np.float32)
                     kks[i] = np.asarray(kk, np.float32)
                 if stereo:
-                    if keypoints_r_list is None:
-                        keypoints_r_list = [None] * n_img
-                    counts_r = [0 if k is None else len(k) for k in keypoints_r_list]
-                    r_bucket = _bucket(max(max(counts_r), 1))
-                    kps_r = np.zeros((b_bucket, r_bucket, 3, 17), np.float32)
                     # Which poses are real: an image's left ones, then its right.
-                    poses = np.zeros((b_bucket, m_bucket + r_bucket), bool)
+                    kps_r, poses = host[2], host[3]
                     for i in range(n_img):
                         poses[i, :counts[i]] = True
                         if counts_r[i]:
@@ -451,9 +672,6 @@ class Loco:
                             # No right detections: the first left pose stands in.
                             kps_r[i, 0] = kps[i, 0]
                             poses[i, m_bucket] = True
-                    host = (kps, kps_r, poses, kks)
-                else:
-                    host = (kps, kks)
 
             def dev(arr):
                 """This rank's images of a batch array, on the device."""
@@ -465,7 +683,7 @@ class Loco:
                 return {k: (tuple(gather_rows(t, self.mesh) for t in v) if k == 'yaw'
                             else gather_rows(v, self.mesh)) for k, v in dic.items()}
 
-            epi_dev = done = None
+            epi_dev = done = out = None
             mine = range(lo, min(hi, n_img))
             if stereo:
                 n_pairs = sum(counts[i] * max(counts_r[i], 1) for i in mine)
@@ -475,10 +693,16 @@ class Loco:
             with torch.inference_mode():
                 self._count_dispatch(rows)
                 with trace.span('loco.h2d'):
-                    on_dev = [dev(arr) for arr in host]
+                    if staged:
+                        on_dev = _views(block[:size].to(self.device, non_blocking=True),
+                                        specs, offsets)
+                    else:
+                        on_dev = [dev(arr) for arr in host]
                 with trace.span('loco.launch'):
                     if stereo:
-                        dic_dev, best = self._stereo_forward(*on_dev, n_pairs)
+                        kps_dev, kks_dev, kps_r_dev, poses_dev = on_dev
+                        dic_dev, best = self._stereo_forward(kps_dev, kps_r_dev, poses_dev,
+                                                             kks_dev, n_pairs)
                         dic_dev['aux_idx'] = best.reshape(-1)
                         dic_dev = gather(dic_dev)
                     else:
@@ -488,24 +712,34 @@ class Loco:
                             epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
                             if self.mesh is not None:
                                 epi_dev = gather_rows(epi_dev, self.mesh)
-                    if root and self.device.type == 'cuda':
-                        done = torch.cuda.Event()
-                        done.record(torch.cuda.current_stream(self.device))
+                    if staged:
+                        out = _HostCopy(dic_dev, epi_dev, self.device, self.staging, [block])
+                        n_d2h, dic_dev, epi_dev = 0, None, None
+                    else:
+                        n_d2h = _n_copies(dic_dev) + (epi_dev is not None)
+                        if root and self.device.type == 'cuda':
+                            done = torch.cuda.Event()
+                            done.record(torch.cuda.current_stream(self.device))
             if root:
                 passes = 1 + self.n_dropout if self._mc_on() else 1
                 useful = (sum(counts[i] * counts_r[i] for i in mine) if stereo
                           else sum(counts[i] for i in mine))
                 root.set(rows_useful=useful * passes, rows_run=rows * passes,
-                         h2d_copies=len(host))
+                         h2d_copies=0 if staged else len(host))
 
         def finalize():
             with trace.span('loco.finalize', dispatch=root.dispatch) as fin:
                 with trace.span('loco.wait'):
-                    if done is not None:
+                    if out is not None:
+                        out.wait()
+                    elif done is not None:
                         done.synchronize()
                 with trace.span('loco.d2h'):
-                    dic = _to_host(dic_dev)
-                    epi = None if epi_dev is None else epi_dev.cpu().numpy()
+                    if out is not None:
+                        dic, epi = out.read()
+                    else:
+                        dic = _to_host(dic_dev)
+                        epi = None if epi_dev is None else epi_dev.cpu().numpy()
                 with trace.span('loco.unpack'):
                     outs = []
                     for i in range(n_img):
@@ -519,7 +753,7 @@ class Loco:
                         dic_i['epi'] = [0.] * m if epi is None else epi[i, :m]
                         outs.append(dic_i)
                 if fin:
-                    fin.set(d2h_copies=_n_copies(dic_dev) + (epi_dev is not None))
+                    fin.set(d2h_copies=n_d2h)
             return outs
 
         return finalize

@@ -22,6 +22,13 @@ are not `record_function` ranges and never appear in the profiler's trace.
 
 Records stay in memory, in one list of at most CAP; those past the cap are
 counted (`dropped()`) and not kept. Nothing is written to a file here.
+
+The engine's spans and counters are listed in `Loco.forward_batch_async`'s
+docstring (network/engine.py). Its copy counters, `h2d_copies` on
+`loco.dispatch` and `d2h_copies` on `loco.finalize`, count the copies that
+block the host on the device the engine runs on: 0 on a card, where the
+copies are staged through pinned memory and never block; on the CPU and
+under a mesh, one a padded array in and one an output tensor out.
 """
 
 import heapq

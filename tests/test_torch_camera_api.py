@@ -58,6 +58,45 @@ def test_project_points_matches_jax(case):
     np.testing.assert_allclose(back[..., 0:2], xyz[..., 0:2], atol=1e-3)
 
 
+def _intrinsics(seed, n):
+    """n seeded pinhole K's: focal 300-1500 px (fx != fy), principal point
+    anywhere in a 1600 x 1000 image, a small skew on half of them."""
+    rng = np.random.default_rng(seed)
+    kk = np.zeros((n, 3, 3), np.float32)
+    kk[:, 0, 0], kk[:, 1, 1] = rng.uniform(300, 1500, n), rng.uniform(300, 1500, n)
+    kk[:, 0, 2], kk[:, 1, 2] = rng.uniform(0, 1600, n), rng.uniform(0, 1000, n)
+    kk[::2, 0, 1] = rng.uniform(-2, 2, (n + 1) // 2)
+    kk[:, 2, 2] = 1.0
+    return kk
+
+
+@pytest.mark.parametrize('batch', [(), (64,), (8, 1)])
+def test_pixel_to_camera_inverts_k_as_linalg_inv_bit_for_bit(batch):
+    """`pixel_to_camera` takes K^-1 from `torch.linalg.inv_ex` (no info
+    check, so no sync with a card): bit for bit `torch.linalg.inv`'s, and the
+    back-projection is the one through `linalg.inv`."""
+    kk = torch.from_numpy(_intrinsics(len(batch) or 1, max(1, int(np.prod(batch))))
+                          .reshape(batch + (3, 3)))
+    np.testing.assert_array_equal(torch.linalg.inv_ex(kk).inverse.numpy(),
+                                  torch.linalg.inv(kk).numpy())
+    uv = torch.from_numpy(np.random.default_rng(9).uniform(0, 1600, batch + (17, 2))
+                          .astype(np.float32))
+    through_inv = torch.matmul(torch.cat([uv, torch.ones(batch + (17, 1))], dim=-1),
+                               torch.linalg.inv(kk).transpose(-1, -2)) * 10
+    np.testing.assert_array_equal(camera.pixel_to_camera(uv, kk, 10).numpy(),
+                                  through_inv.numpy())
+
+
+def test_pixel_to_camera_with_a_singular_k_is_non_finite_as_jax():
+    """A singular K raises nothing: the back-projection is non-finite, as
+    through the JAX package's `jnp.linalg.inv`."""
+    kk = np.array([[700., 1400., 600.], [350., 700., 180.], [0., 0., 1.]], np.float32)
+    uv = np.array([[600., 180.], [100., 50.]], np.float32)
+    ours = camera.pixel_to_camera(torch.from_numpy(uv), torch.from_numpy(kk), 10).numpy()
+    theirs = np.asarray(jax_geometry.pixel_to_camera(uv, kk, 10))
+    assert not np.isfinite(ours).all() and not np.isfinite(theirs).all()
+
+
 def _centers(seed, m):
     rng = np.random.default_rng(seed)
     uv = rng.random((m, 2)) * 800
