@@ -1356,44 +1356,46 @@ def phase_roofline():
 
 class _McSpy:
     """Within the block, records each MC dispatch of the engine: (the
-    engine, its keypoints and calibrations on the card, the draws it used,
-    the epi it returned)."""
+    engine, the MLP inputs and each row's place in its image on the card,
+    the detection bucket, the draws it used, the epi it returned)."""
 
     def __enter__(self):
         from monoloco_tpu_torch.network import Loco
-        self.calls, self.real = [], Loco.mc_epistemic
+        self.calls, self.real = [], Loco.mc_rows
         calls, real = self.calls, self.real
 
-        def mc_epistemic(net, kps, kk, mc=None):
-            epi = real(net, kps, kk, mc)
-            calls.append((net, kps, kk, net.mc_last, epi))
+        def mc_rows(net, x, pos, m, mc=None):
+            epi = real(net, x, pos, m, mc)
+            calls.append((net, x, pos, m, net.mc_last, epi))
             return epi
 
-        Loco.mc_epistemic = mc_epistemic
+        Loco.mc_rows = mc_rows
         return self
 
     def __exit__(self, *exc):
         from monoloco_tpu_torch.network import Loco
-        Loco.mc_epistemic = self.real
+        Loco.mc_rows = self.real
 
 
 def _check_mc_outputs(out_dir, ref_dir, epi):
     """The JSON of an MC + activities run against the phase 4 run at the
-    same precision (ref_dir): stds_epi finite, > 0 and the dispatch's epi
-    (B, m) exactly; every other key of ref_dir bit for bit; social_distance
-    and raising_hand equal to a host recomputation from the JSON. Returns
-    (the dicts, the number of detections flagged by each rule)."""
+    same precision (ref_dir): stds_epi finite, > 0 and the dispatch's flat
+    epi, image by image, exactly; every other key of ref_dir bit for bit;
+    social_distance and raising_hand equal to a host recomputation from the
+    JSON. Returns (the dicts, the number of detections flagged by each
+    rule)."""
     from monoloco_tpu_torch.activity import is_raising_hand
     from monoloco_tpu_torch.network import Loco
     dicts, refs = _read_dicts(out_dir, PREDICT_IMAGES), _read_dicts(ref_dir, PREDICT_IMAGES)
     epi = epi.cpu().numpy()
-    flagged = [0, 0]
+    flagged, start = [0, 0], 0
     for i, (dic, ref) in enumerate(zip(dicts, refs)):
         e = np.asarray(dic['stds_epi'], np.float64)
         check(e.size == len(ref['dds_pred']) and np.isfinite(e).all() and (e > 0).all(),
               f"{out_dir} image {i}: stds_epi not finite and > 0 for every detection")
-        check(dic['stds_epi'] == epi[i, :e.size].tolist(),
+        check(dic['stds_epi'] == epi[start:start + e.size].tolist(),
               f"{out_dir} image {i}: stds_epi is not the MC dispatch's epi")
+        start += e.size
         for key in ref:
             check(key == 'stds_epi' or dic[key] == ref[key],
                   f"{out_dir} image {i}: {key} differs from the run without MC")
@@ -1443,8 +1445,8 @@ def phase_mc(tmp):
               f"dispatch for the {PREDICT_IMAGES} images")
         check(ran == ({'dyn8_mlp': 1} if precision == 'int8' else {}),
               f"{precision} MC run: launches {ran}")
-        _, kps, kk, (masks, u), epi = spy.calls[0]
-        check(masks[0].shape == (MC_DROPOUT, kps.shape[1], HIDDEN), "MC masks' shape")
+        _, x, pos, m, (masks, u), epi = spy.calls[0]
+        check(masks[0].shape == (MC_DROPOUT, m, HIDDEN), "MC masks' shape")
         dicts, flagged = _check_mc_outputs(out_dir, os.path.join(tmp, ref), epi)
         print(f"{precision}: stds_epi of {sum(len(d['stds_epi']) for d in dicts)} detections "
               f"finite and > 0 (mean {float(epi.mean()):.4e} m); every other key equals phase 4 "
@@ -1459,23 +1461,23 @@ def phase_mc(tmp):
           "MC under int8 is not the float32 MC (it must stay f32)")
     print("int8: epi equals float32's bit for bit (MC stays f32; the main dispatch ran dyn8)")
 
-    net, kps, kk, (masks, u), epi = f32_call
+    net, x, pos, m, (masks, u), epi = f32_call
     cpu = Loco(model=model, mode='mono', device='cpu', n_dropout=MC_DROPOUT)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        epi_cpu = cpu.mc_epistemic(kps.cpu(), kk.cpu(), ([m.cpu() for m in masks], u.cpu()))
+        epi_cpu = cpu.mc_rows(x.cpu(), pos.cpu(), m, ([k.cpu() for k in masks], u.cpu()))
     rel = float(((epi.cpu() - epi_cpu).abs() / epi_cpu.abs()).max())
     print(f"card epi against the CPU's plain f32 recomputation from the card's masks and "
           f"uniforms ({time.perf_counter() - t0:.1f} s on the CPU): max relative difference "
           f"{rel:.3e} (tolerance {MC_TOL})", flush=True)
     check(rel <= MC_TOL, "the card's epi disagrees with the CPU's recomputation")
 
-    rows = MC_DROPOUT * kps.shape[0] * kps.shape[1]
-    for what, fn in (('draws + forward', lambda: net.mc_epistemic(kps, kk)),
-                     ('forward on given draws', lambda: net.mc_epistemic(kps, kk, (masks, u)))):
+    rows = MC_DROPOUT * x.shape[0]
+    for what, fn in (('draws + forward', lambda: net.mc_rows(x, pos, m)),
+                     ('forward on given draws', lambda: net.mc_rows(x, pos, m, (masks, u)))):
         med, lo, hi = _median_ms(fn)
-        print(f"one MC dispatch ({what}), {MC_DROPOUT} passes x {kps.shape[0]} x "
-              f"{kps.shape[1]} = {rows} rows at hidden {HIDDEN}, f32: median {med:.4f} ms over "
+        print(f"one MC dispatch ({what}), {MC_DROPOUT} passes x {x.shape[0]} flat rows = "
+              f"{rows} rows at hidden {HIDDEN}, f32: median {med:.4f} ms over "
               f"7 runs (min {lo:.4f}, max {hi:.4f})")
     return f32_dicts, epis['float32'], int8_counts
 
@@ -1508,7 +1510,7 @@ def phase_precisions(tmp, f32_dicts, f32_epi, dyn8):
         else:
             check(ran == {}, f"tensorfloat32 run launched {ran}")
             check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on after the run")
-        check(len(spy.calls) == 1 and torch.equal(spy.calls[0][4], f32_epi),
+        check(len(spy.calls) == 1 and torch.equal(spy.calls[0][5], f32_epi),
               f"{precision}: MC epi is not float32's (it must stay f32)")
         dicts = _read_dicts(out_dir, PREDICT_IMAGES)
         d = np.concatenate([x['dds_pred'] for x in dicts])
@@ -2007,14 +2009,16 @@ def phase_generate(tmp, model, s_params, s_bn):
 
 
 def phase_generate_chunk(root, model, kernels, folded):
-    """dyn8 and K1-bf16 against their plain versions on the padded rows
-    (after K^-1) of the 64-image chunk of phase 18 with the most detections
-    an image, as `forward_batch_async` pads them, with times at that shape."""
+    """dyn8 and K1-bf16 against their plain versions on the MLP rows (after
+    K^-1) of the 64-image chunk of phase 18 with the most detections an
+    image, as `forward_batch_async` runs them: the real detections image by
+    image, then cell 0 up to the dispatch's rows; with times at that
+    shape."""
     from monoloco_tpu_torch import run
     from monoloco_tpu_torch.eval import GenerateKitti
     from monoloco_tpu_torch.models import folded_forward
     from monoloco_tpu_torch.network import preprocess_monoloco
-    from monoloco_tpu_torch.network.engine import _bucket
+    from monoloco_tpu_torch.network.engine import _bucket, _mono_cells, _mono_rows
     t0 = time.perf_counter()
     old = os.getcwd()
     os.chdir(root)
@@ -2031,16 +2035,19 @@ def phase_generate_chunk(root, model, kernels, folded):
         os.chdir(old)
     chunks = [loaded[i:i + GEN_CHUNK] for i in range(0, len(loaded), GEN_CHUNK)]
     chunk = max(chunks, key=lambda c: (len(c), max(len(k) for k, _ in c)))
-    m_bucket = _bucket(max(len(k) for k, _ in chunk))
+    counts = [len(k) for k, _ in chunk]
+    m_bucket = _bucket(max(counts))
     kps = np.zeros((len(chunk), m_bucket, 3, 17), np.float32)
     kks = np.zeros((len(chunk), 3, 3), np.float32)
     for i, (k, kk) in enumerate(chunk):
         kps[i, :len(k)] = k
         kks[i] = kk
+    cells = np.zeros(_mono_rows(counts, _bucket(len(chunk), minimum=1), m_bucket), np.int64)
+    cells[:sum(counts)] = _mono_cells(counts, m_bucket)
     x = preprocess_monoloco(torch.from_numpy(kps).cuda(), torch.from_numpy(kks).cuda())
-    x = x.reshape(-1, IN_DIM).contiguous()
-    banner(f"== phase 19: dyn8 and K1-bf16 vs plain on a generate chunk: {len(chunk)} images x "
-          f"{m_bucket} detections = {x.shape[0]} rows", flush=True)
+    x = x.reshape(-1, IN_DIM)[torch.from_numpy(cells).cuda()].contiguous()
+    banner(f"== phase 19: dyn8 and K1-bf16 vs plain on a generate chunk: {len(chunk)} images, "
+          f"{sum(counts)} detections (bucket {m_bucket}) -> {x.shape[0]} flat rows", flush=True)
     f32_ref = folded_forward(folded, x)
     worst, ms = {}, {}
     for name, rule in (('dyn8_mlp', 'int8'), ('fused_mlp_bf16', 'bf16')):
@@ -2053,7 +2060,8 @@ def phase_generate_chunk(root, model, kernels, folded):
     ms['f32_folded'] = med
     print(f"  f32 folded (torch.matmul) at {x.shape[0]} rows: {med:.4f} ms (min {lo:.4f}, "
           f"max {hi:.4f})", flush=True)
-    record({'phase': 19, 'rows': x.shape[0], 'max_abs_err': worst, 'ms': ms,
+    record({'phase': 19, 'rows': x.shape[0], 'detections': sum(counts), 'max_abs_err': worst,
+            'ms': ms,
             'wall_s': time.perf_counter() - t0})
     return worst
 

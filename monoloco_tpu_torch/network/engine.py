@@ -33,7 +33,11 @@ image's real L x R pairs, packed end to end and rounded up to the kernels'
 128-row tile (`_flat_rows`, at least one tile); routing reads that row
 count, so at the default floor every stereo dispatch runs dyn8 under int8,
 as with the padded grid (at least 4 x 4). The aux argmax runs
-over each image's (m, r) grid with the padded cells at -inf.
+over each image's (m, r) grid with the padded cells at -inf. A mono batch
+without a mesh runs likewise one row a real detection, image by image,
+rounded up to the tile (`_mono_flat`), but never more rows than its padded
+(B, m) grid (`_mono_rows`): a small dispatch runs, and routes, as many rows
+as its bucket. `forward`, one image, runs its bucket.
 
 MC-dropout epistemic uncertainty (`n_dropout > 0`, mono nets; stereo keeps
 epi at zeros, as in the JAX package) is one more dispatch after the main
@@ -41,19 +45,21 @@ one: the n_dropout passes stacked on a leading axis through
 `folded_forward_mc` (the folded f32 net on the device, TF32 off, under every
 precision), 100 Laplace samples a pass and the std over all of them. The
 keep-masks and the uniforms come from torch.Generators on the device made
-afresh on every dispatch (seed 0 and 1): the same for every pass's uniforms
-and, in a batch, for every image, as the JAX package's fixed keys and its
-vmap over images make them. `forward`, `forward_batch` and
-`forward_batch_async` also take them injected (`mc=(masks, u)`), and
-`mc_last` keeps the last ones drawn.
+afresh on every dispatch (seed 0 and 1) over the detection bucket: the same
+for every pass's uniforms and, in a batch, for every image, as the JAX
+package's fixed keys and its vmap over images make them; each row takes
+the draws of its place in its image (`mc_rows`).
+`forward`, `forward_batch` and `forward_batch_async` also take them
+injected (`mc=(masks, u)`), and `mc_last` keeps the last ones drawn.
 
 Under a mesh (`mesh=`, a `parallel.Mesh`; every rank builds the same Loco
 and calls `forward_batch_async` with the same images), the image bucket
 pads to a multiple of the data ranks, each rank runs its share of the
 images through the same routing (so dyn8 from 16 MLP rows a rank, and
 K1-bf16 under bf16), and the outputs are all-gathered over the data group:
-every rank gets what one device computes. The dispatch counters count the
-rows of a rank's share, as the JAX engine's `_dispatch_shard_factor`. A
+every rank gets what one device computes; mono keeps the padded (B, m)
+grid there, since the gather takes equal pieces. The dispatch counters count
+the rows of a rank's share, as the JAX engine's `_dispatch_shard_factor`. A
 mesh with a model axis above 1 computes the data shards alike on the ranks
 of a model group, with the full weights; it warns and drops the int8 route,
 as the JAX engine does (its Pallas kernel has no partitioning rule over the
@@ -139,9 +145,27 @@ def _bucket(n, minimum=4):
 
 
 def _flat_rows(n_pairs):
-    """The MLP rows of a stereo dispatch of n_pairs real pairs: rounded up
-    to the kernels' row tile, at least one tile."""
+    """The MLP rows of a flat dispatch of n_pairs real rows (stereo pairs,
+    mono detections): rounded up to the kernels' row tile, at least one
+    tile."""
     return max(_ROW_TILE, -(-n_pairs // _ROW_TILE) * _ROW_TILE)
+
+
+def _mono_rows(counts, b_bucket, m_bucket):
+    """The MLP rows of a flat mono dispatch of images with `counts`
+    detections: the real ones rounded up to the row tile, but no more than
+    the padded (B m) grid, so that a small dispatch runs, and routes
+    (`_INT8_MIN_ROWS`), as many rows as its bucket."""
+    return min(b_bucket * m_bucket, _flat_rows(sum(counts)))
+
+
+def _mono_cells(counts, m_bucket):
+    """Each real detection's cell in the padded (B m) grid, image by image:
+    the first sum(counts) flat rows of a mono dispatch."""
+    counts = np.asarray(counts, np.int64)
+    starts = np.cumsum(counts) - counts
+    return np.arange(counts.sum()) + np.repeat(np.arange(counts.size) * m_bucket - starts,
+                                               counts)
 
 
 def _pad_rows(arr, size):
@@ -439,11 +463,26 @@ class Loco:
             raw = _mlp_forward(self.mlp_weights, inputs, self.arch)
             return {'d': raw[:, 0:1], 'bi': unnormalize_bi(raw)}
         inputs = preprocess_monoloco(kps, kk)
-        raw = _mlp_forward(self.mlp_weights, inputs.reshape(-1, inputs.shape[-1]),
-                           self.arch)
-        if self.net == 'monoloco_p':
-            return extract_outputs_mono(raw)
-        return extract_outputs(raw)
+        return self._decode_mono(_mlp_forward(
+            self.mlp_weights, inputs.reshape(-1, inputs.shape[-1]), self.arch))
+
+    def _decode_mono(self, raw):
+        return extract_outputs_mono(raw) if self.net == 'monoloco_p' else extract_outputs(raw)
+
+    def _mono_flat(self, kps, kk, cells, mc=None):
+        """An image batch on the device: kps (B, m, 3, 17), kk (B, 3, 3) and
+        cells (rows,) int32, each flat row's cell in the (B m) grid: the real
+        detections image by image (`_mono_cells`), then cell 0 ->
+        (the decoded output dict over the rows, and with MC dropout their
+        epistemic std (rows,), else None). The MLP and the MC passes run
+        the gathered rows only; a padded cell's output is never used."""
+        x = preprocess_monoloco(kps, kk)
+        x = x.reshape(-1, x.shape[-1]).index_select(0, cells)
+        dic = self._decode_mono(_mlp_forward(self.mlp_weights, x, self.arch))
+        if not self._mc_on():
+            return dic, None
+        m = kps.shape[1]
+        return dic, self.mc_rows(x, cells % m, m, mc)
 
     def _stereo_forward(self, kps_l, kps_r, poses, kk, n_pairs):
         """An image batch on the device: left (B, m, 3, 17), right (B, r, 3,
@@ -490,27 +529,26 @@ class Loco:
                               self.device, seed=0)
         return masks, laplace_uniforms(N_SAMPLES, rows, self.device, seed=1)
 
-    def mc_epistemic(self, kps, kk, mc=None):
-        """The epistemic std of an image batch in one dispatch: kps (B, m, 3,
-        17) and kk (B, 3, 3) on the device -> (B, m) f32. The n_dropout
-        passes run stacked, (n_dropout, B, m, H), with every image's masks
-        alike; each pass's distance mean and Laplace spread (columns 0:2 of
-        the legacy 'monoloco' net, 2:4 otherwise) give N_SAMPLES samples, and
-        the std (ddof 1) is over all n_dropout * N_SAMPLES of them. `mc` is
-        (masks, u) as `draw_mc` makes them (drawn here when None); kept in
-        `mc_last`."""
-        masks, u = self.draw_mc(kps.shape[1]) if mc is None else mc
+    def mc_rows(self, x, pos, m, mc=None):
+        """The epistemic std of rows in one dispatch: x (rows, in), the MLP's
+        inputs, and pos (rows,) int, each row's place in its image, below m
+        -> (rows,) f32. The draws are those of images padded to m detections
+        (`draw_mc(m)`, or `mc` injected; kept in `mc_last`), alike for every
+        image, and each row takes the keep-mask rows and uniforms of its
+        place. The n_dropout passes run stacked, (n_dropout, rows, H); each
+        pass's distance mean and Laplace spread (columns 0:2 of the legacy
+        'monoloco' net, 2:4 otherwise) give N_SAMPLES samples, and the std
+        (ddof 1) is over all n_dropout * N_SAMPLES of a row's."""
+        masks, u = self.draw_mc(m) if mc is None else mc
         self.mc_last = (masks, u)
-        if self.net == 'monoloco':                   # per image only, B = 1
-            x = preprocess_monoloco(kps[0], kk[0], zero_center=True)[None]
-        else:
-            x = preprocess_monoloco(kps, kk)                                # (B, m, in)
-        out = folded_forward_mc(self.mlp_weights['folded'].folded(), x,
-                                [keep[:, None] for keep in masks], self.p_dropout, self.arch)
-        db = out[..., 0:2] if self.net == 'monoloco' else out[..., 2:4]     # (n, B, m, 2)
+        # One gather for every site: each launch costs the host.
+        keep = torch.stack(masks).index_select(2, pos).unbind()
+        out = folded_forward_mc(self.mlp_weights['folded'].folded(), x, keep,
+                                self.p_dropout, self.arch)                   # (n, rows, out)
+        db = out[..., 0:2] if self.net == 'monoloco' else out[..., 2:4]
         mu_b = torch.cat([db[..., 0:1], unnormalize_bi(db)], dim=-1)
-        samples = laplace_sampling(mu_b.transpose(0, 1), N_SAMPLES, u=u)   # (B, n, S, m)
-        return torch.std(samples.reshape(kps.shape[0], -1, kps.shape[1]), dim=1, correction=1)
+        samples = laplace_sampling(mu_b, N_SAMPLES, u=u.index_select(1, pos))  # (n, S, rows)
+        return torch.std(samples.reshape(-1, x.shape[0]), dim=0, correction=1)
 
     def _mc_on(self):
         return self.n_dropout > 0 and self.net != 'monstereo'
@@ -521,7 +559,7 @@ class Loco:
         pose stands in) -> dict of numpy arrays (m rows each; 'yaw' is a
         (pred, egocentric) pair; stereo adds 'aux' and 'aux_idx', the right
         pose chosen per left pose). 'epi' is the MC-dropout std with
-        n_dropout > 0 on a mono net (`mc`: injected draws for `mc_epistemic`,
+        n_dropout > 0 on a mono net (`mc`: injected draws for `mc_rows`,
         over the padded bucket), else zeros."""
         if keypoints is None or len(keypoints) == 0:
             return None
@@ -551,7 +589,9 @@ class Loco:
                 kps_dev = torch.from_numpy(_pad_rows(kps, bm)).to(self.device)
                 dic = self._mono_forward(kps_dev, kk_dev)
                 if self._mc_on():
-                    epi = self.mc_epistemic(kps_dev[None], kk_dev[None], mc)[0, :m].cpu().numpy()
+                    x = preprocess_monoloco(kps_dev, kk_dev, zero_center=self.net == 'monoloco')
+                    pos = torch.arange(bm, device=self.device)
+                    epi = self.mc_rows(x, pos, bm, mc)[:m].cpu().numpy()
             dic = _to_host(dic)
         dic_out = {k: (v[0][:m], v[1][:m]) if k == 'yaw' else v[:m]
                    for k, v in dic.items()}
@@ -568,7 +608,7 @@ class Loco:
         detections), identical in layout to `forward`'s.
         With n_dropout > 0 on a mono net a second dispatch computes 'epi'
         for the whole batch (`mc`: injected draws over the shared detection
-        bucket, see `mc_epistemic`).
+        bucket, see `mc_rows`).
 
         keypoints_r_list (stereo net): per-image right keypoints (r_i, 3, 17);
         an entry may be None or empty, and then the image's first left pose
@@ -576,7 +616,10 @@ class Loco:
 
         CUDA launches are asynchronous, so the caller can prepare the next
         chunk or write files before finalize() waits for this one. Images pad
-        to shared detection buckets, as in the JAX package.
+        to shared detection buckets, as in the JAX package; without a mesh
+        the MLP and the MC passes run one flat row a real detection (mono,
+        `_mono_flat`, at most the padded grid's rows) or a real pair
+        (stereo), rounded up to the row tile.
 
         On a card without a mesh (`staged`) nothing here blocks the host on
         the device. The padded arrays are numpy views of one zeroed pinned
@@ -598,9 +641,10 @@ class Loco:
         the block; else the blocking copies) and `loco.launch` (the forward,
         the gather and the MC passes, and staged the outputs' copies to the
         host, all enqueued); its counters are `rows_useful` (sum L, or L x
-        R, a frame), `rows_run` (the rows the MLP runs: the padded bucket B
-        m, or the flat pairs rounded to the row tile), both x (1 +
-        n_dropout) with MC, and `h2d_copies`. finalize() is a
+        R, a frame), `rows_run` (the rows the MLP runs: the flat pairs
+        rounded up to the row tile; mono the flat detections so rounded, at
+        most the padded bucket B m, and under a mesh that bucket of a rank),
+        both x (1 + n_dropout) with MC, and `h2d_copies`. finalize() is a
         `loco.finalize` span of the same dispatch id, counting `d2h_copies`,
         holding `loco.wait`, `loco.d2h` and `loco.unpack` (the per-image
         slicing). `loco.wait` is this dispatch's own device work: staged, a
@@ -610,9 +654,10 @@ class Loco:
         pinned buffer into ordinary arrays; else the blocking copies to the
         host, which also wait behind whatever was queued on the stream after
         this work. `h2d_copies` and `d2h_copies` count the copies that block
-        the host on the device: 0 and 0 staged; else one a padded array and
+        the host on the device: 0 and 0 staged; else one a host array and
         one an output tensor ('yaw' two, MC's 'epi' one), 4 and 11 for
-        stereo, 2 and 10 for mono with MC.
+        stereo, 3 and 10 for mono with MC (its flat cells the third array;
+        under a mesh 2 and 10).
         """
         if self.net not in ('monoloco_pp', 'monoloco_p', 'monstereo'):
             raise ValueError("forward_batch supports the monoloco_pp, monoloco_p and "
@@ -621,6 +666,9 @@ class Loco:
         if n_img == 0:
             return lambda: []
         stereo = self.net == 'monstereo'
+        # Mono runs flat rows but under a mesh, whose gather takes equal
+        # pieces from every rank.
+        flat = not stereo and self.mesh is None
         staged = self.staged
         with trace.span('loco.dispatch') as root:
             with trace.span('loco.bucket'):
@@ -643,6 +691,9 @@ class Loco:
                     r_bucket = _bucket(max(max(counts_r), 1))
                     specs += [((b_bucket, r_bucket, 3, 17), torch.float32),
                               ((b_bucket, m_bucket + r_bucket), torch.bool)]
+                if flat:
+                    rows = _mono_rows(counts, b_bucket, m_bucket)
+                    specs.append(((rows,), torch.int32))
                 if staged:
                     # One zeroed host block (pinned on a card) holds every
                     # array; the arrays are numpy views of it.
@@ -672,10 +723,19 @@ class Loco:
                             # No right detections: the first left pose stands in.
                             kps_r[i, 0] = kps[i, 0]
                             poses[i, m_bucket] = True
+                if flat:
+                    # Each flat row's cell in the (B m) grid; the rows after
+                    # the last detection keep cell 0.
+                    cells = _mono_cells(counts, m_bucket)
+                    host[2][:cells.size] = cells
+                    starts = np.cumsum(counts) - counts       # each image's first flat row
 
             def dev(arr):
-                """This rank's images of a batch array, on the device."""
-                return torch.from_numpy(np.ascontiguousarray(arr[lo:hi])).to(self.device)
+                """A host array on the device: under a mesh this rank's images
+                of it."""
+                if self.mesh is not None:
+                    arr = np.ascontiguousarray(arr[lo:hi])
+                return torch.from_numpy(arr).to(self.device)
 
             def gather(dic):
                 if self.mesh is None:
@@ -688,7 +748,7 @@ class Loco:
             if stereo:
                 n_pairs = sum(counts[i] * max(counts_r[i], 1) for i in mine)
                 rows = _flat_rows(n_pairs)
-            else:
+            elif not flat:
                 rows = (hi - lo) * m_bucket
             with torch.inference_mode():
                 self._count_dispatch(rows)
@@ -705,13 +765,16 @@ class Loco:
                                                              kks_dev, n_pairs)
                         dic_dev['aux_idx'] = best.reshape(-1)
                         dic_dev = gather(dic_dev)
+                    elif flat:
+                        dic_dev, epi_dev = self._mono_flat(*on_dev, mc)
                     else:
                         kps_dev, kks_dev = on_dev
                         dic_dev = gather(self._mono_forward(kps_dev, kks_dev))
                         if self._mc_on():
-                            epi_dev = self.mc_epistemic(kps_dev, kks_dev, mc)
-                            if self.mesh is not None:
-                                epi_dev = gather_rows(epi_dev, self.mesh)
+                            x = preprocess_monoloco(kps_dev, kks_dev)
+                            x = x.reshape(-1, x.shape[-1])
+                            pos = torch.arange(x.shape[0], device=self.device) % m_bucket
+                            epi_dev = gather_rows(self.mc_rows(x, pos, m_bucket, mc), self.mesh)
                     if staged:
                         out = _HostCopy(dic_dev, epi_dev, self.device, self.staging, [block])
                         n_d2h, dic_dev, epi_dev = 0, None, None
@@ -747,10 +810,13 @@ class Loco:
                         if m == 0:
                             outs.append(None)
                             continue
-                        sl = slice(i * m_bucket, i * m_bucket + m)
+                        if flat:
+                            sl = slice(starts[i], starts[i] + m)
+                        else:
+                            sl = slice(i * m_bucket, i * m_bucket + m)
                         dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
                                  for k, v in dic.items()}
-                        dic_i['epi'] = [0.] * m if epi is None else epi[i, :m]
+                        dic_i['epi'] = [0.] * m if epi is None else epi[sl]
                         outs.append(dic_i)
                 if fin:
                     fin.set(d2h_copies=n_d2h)

@@ -447,8 +447,9 @@ KK_KITTI = [[718.3351, 0., 600.3891], [0., 718.3351, 181.5122], [0., 0., 1.]]
 @pytest.mark.parametrize('spelling', ['bf16', 'bfloat16'])
 def test_mono_engine_bf16_launches_k1_bf16_on_every_dispatch(cuda_device, monkeypatch, spelling):
     """Under bf16 a Loco net of hidden % 128 == 0 runs K1-bf16 on every
-    dispatch, per image (8 rows) and batched (3 images, 48 rows), never
-    dyn8; its distances stay within 0.02 mean relative of float32's."""
+    dispatch, per image (8 rows) and batched (3 images, 30 detections in
+    one flat 128-row tile), never dyn8; its distances stay within 0.02 mean
+    relative of float32's."""
     from monoloco_tpu_torch.network import Loco
     params, bn = init_loco_params(0, 34, 9, 1024, 3)
     params['w_fin']['b'][2] += 15.0

@@ -108,7 +108,7 @@ def test_staged_counts_no_blocking_copy(engines, kind):
     assert sorted(counts[True]) == sorted(counts[False])
     assert counts[True]['loco.dispatch'] == {**counts[False]['loco.dispatch'], 'h2d_copies': 0}
     assert counts[True]['loco.finalize'] == {'d2h_copies': 0}
-    assert counts[False]['loco.dispatch']['h2d_copies'] == (4 if kind == 'stereo' else 2)
+    assert counts[False]['loco.dispatch']['h2d_copies'] == (4 if kind == 'stereo' else 3)
 
 
 def test_layout_aligns_every_array():

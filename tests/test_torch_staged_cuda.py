@@ -17,7 +17,10 @@ included, and own their memory; a chunk's results survive later chunks
 that reuse its buffers; closures finalize in any order, on another
 thread, or never, and their pinned buffers go back to the engine's staging
 pool; a repeated loop of chunks makes no new pinned allocation after its
-warm-up.
+warm-up. MonoLoco++ with MC runs one row a real detection
+(`engine._flat_rows`): on the edge mixes of tests/torch_mono_grid.py and a
+crowd chunk its outputs and epi match the padded (B, m) grid within f32
+tolerance, without a sync, and its pinned output holds the flat rows.
 """
 
 import copy
@@ -29,13 +32,17 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mono_grid as mono_grid
 import torch_stereo_grid as grid
 from monoloco_tpu_torch.models import init_loco_params
-from monoloco_tpu_torch.network import Loco
+from monoloco_tpu_torch.network import Loco, engine
 
 pytestmark = pytest.mark.cuda
 
 CASES = ('int8', 'bfloat16', 'float32', 'mc')
+# The flat MC dispatch against the padded grid: f32 on both sides (TF32
+# off); cuBLAS may sum in another order at another row count.
+MC_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -204,3 +211,47 @@ def test_no_pinned_allocation_after_the_warm_up(cuda_device, monkeypatch, case):
     before = stats()['num_host_alloc']
     _run(net, chunks * 2)
     assert stats()['num_host_alloc'] == before
+
+
+def _mc_weights():
+    """MonoLoco++ at hidden 1024, 3 stages, people 15 m ahead (theta =
+    psi = pi/2), where z = sqrt(d^2 - x^2 - y^2) is well conditioned."""
+    params, bn = init_loco_params(0, 34, 9, 1024, 3)
+    params['w_fin']['b'][0:3] += torch.tensor([np.pi / 2, np.pi / 2, 15.0])
+    return params, bn
+
+
+@pytest.mark.parametrize('mix', list(mono_grid.MIXES) + ['crowd'])
+def test_flat_mc_dispatch_is_the_padded_grid(cuda_device, monkeypatch, mix):
+    """The staged flat MC dispatch raises nothing under sync debug mode
+    'error', its pinned output holds the flat rows a leaf (`_flat_rows(sum
+    L)`, not B x m_bucket, where the grid is larger), and every detection's
+    outputs and epi are the padded grid's within MC_RTOL."""
+    made = []
+
+    class Recorded(engine._HostCopy):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setenv('MONOLOCO_TPU_PRECISION', 'float32')
+    net = Loco(_mc_weights(), mode='mono', device=cuda_device, n_dropout=10)
+    assert net.staged
+    monkeypatch.setattr(engine, '_HostCopy', Recorded)
+    kps, kks = (_chunks('mc')[0] if mix == 'crowd'
+                else mono_grid.frames(mono_grid.MIXES[mix], seed=len(mix)))
+    net.forward_batch(kps, kks)                # builds and warms every kernel
+    torch.cuda.synchronize()
+    made.clear()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fin = net.forward_batch_async(kps, kks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    outs = fin()
+    (out,) = made
+    rows = mono_grid.rows([len(k) for k in kps])
+    assert {shape[0] for *_, shape in out.leaves} == {rows}
+    assert [shape for key, *_, shape in out.leaves if key == 'epi'] == [(rows,)]
+    _assert_own_memory(outs)
+    mono_grid.assert_close(outs, mono_grid.padded_grid(net, kps, kks), MC_RTOL, MC_RTOL)
