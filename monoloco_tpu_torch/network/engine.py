@@ -6,7 +6,8 @@ stereo, the all-vs-all pairing of left and right poses), the BN-folded
 residual MLP, for stereo the choice of each left pose's right partner by the
 aux logit, and the physical decode. Everything after (ground truth matching,
 output dict assembly, the activity rules) is host numpy on a handful of
-detections.
+detections. `forward` (one image) and `forward_batch_async` (many) run the
+same dispatch (`Loco._dispatch`).
 
 MLP routing (`_mlp_forward`), as in the JAX package off the TPU:
  - default / float32: the plain f32 folded forward (`FoldedLoco`, torch.matmul);
@@ -24,7 +25,7 @@ at a 700 W power limit by `monoloco_tpu_torch/tools/bench_int8_crossover.py`
 131072 rows): in two runs dyn8 won at every measured row count, the
 smallest being 16 (1.04-1.26x up to 2048 rows, where both are bound by the
 host's launches; 1.95-2.40x at 8192, 7.1x at 131072). The JAX package's 512 was a TPU v5e's
-dyn8/bf16 crossover. MONOLOCO_TPU_INT8_MIN_ROWS overrides it.
+dyn8/bf16 crossover.
 
 Detection counts pad to power-of-two buckets (`_bucket`): the JAX package
 needs them to bound recompiles, and the port's host arrays keep its layout.
@@ -33,11 +34,11 @@ image's real L x R pairs, packed end to end and rounded up to the kernels'
 128-row tile (`_flat_rows`, at least one tile); routing reads that row
 count, so at the default floor every stereo dispatch runs dyn8 under int8,
 as with the padded grid (at least 4 x 4). The aux argmax runs
-over each image's (m, r) grid with the padded cells at -inf. A mono batch
-without a mesh runs likewise one row a real detection, image by image,
-rounded up to the tile (`_mono_flat`), but never more rows than its padded
-(B, m) grid (`_mono_rows`): a small dispatch runs, and routes, as many rows
-as its bucket. `forward`, one image, runs its bucket.
+over each image's (m, r) grid with the padded cells at -inf. Mono runs
+likewise one row a real detection, image by image, rounded up to the tile
+(`_mono_flat`), but never more rows than its padded (B, m) grid
+(`_mono_rows`): a small dispatch, one image of up to 256 detections
+included, runs, and routes, as many rows as its bucket.
 
 MC-dropout epistemic uncertainty (`n_dropout > 0`, mono nets; stereo keeps
 epi at zeros, as in the JAX package) is one more dispatch after the main
@@ -57,13 +58,14 @@ and calls `forward_batch_async` with the same images), the image bucket
 pads to a multiple of the data ranks, each rank runs its share of the
 images through the same routing (so dyn8 from 16 MLP rows a rank, and
 K1-bf16 under bf16), and the outputs are all-gathered over the data group:
-every rank gets what one device computes; mono keeps the padded (B, m)
-grid there, since the gather takes equal pieces. The dispatch counters count
-the rows of a rank's share, as the JAX engine's `_dispatch_shard_factor`. A
-mesh with a model axis above 1 computes the data shards alike on the ranks
-of a model group, with the full weights; it warns and drops the int8 route,
-as the JAX engine does (its Pallas kernel has no partitioning rule over the
-model axis). `forward`, one image, computes locally on every rank.
+every rank gets what one device computes; mono runs every cell of the
+rank's share of the padded (B, m) grid there, since the gather takes equal
+pieces. The dispatch counters count the rows of a rank's share, as the JAX
+engine's `_dispatch_shard_factor`. A mesh with a model axis above 1
+computes the data shards alike on the ranks of a model group, with the full
+weights; it warns and drops the int8 route, as the JAX engine does (its
+Pallas kernel has no partitioning rule over the model axis). `forward`,
+one image, computes locally on every rank and makes no collective.
 """
 
 import bisect
@@ -103,7 +105,7 @@ N_SAMPLES = 100
 # net='monoloco_p'; there as here the checkpoint's shape decides.
 LINEAR_SIZE_MONO = 256
 # The measured dyn8-vs-f32 crossover on the H100 (module docstring).
-_INT8_MIN_ROWS = int(os.environ.get('MONOLOCO_TPU_INT8_MIN_ROWS', '16'))
+_INT8_MIN_ROWS = 16
 # The row tile of the MLP kernels (`kBM` in ops/csrc/wgmma_layer.cu).
 _ROW_TILE = 128
 
@@ -168,25 +170,6 @@ def _mono_cells(counts, m_bucket):
                                                counts)
 
 
-def _pad_rows(arr, size):
-    m = arr.shape[0]
-    if m == size:
-        return np.asarray(arr, np.float32)
-    out = np.zeros((size,) + arr.shape[1:], np.float32)
-    out[:m] = arr
-    return out
-
-
-def _to_host(dic):
-    return {k: (tuple(t.cpu().numpy() for t in v) if k == 'yaw' else v.cpu().numpy())
-            for k, v in dic.items()}
-
-
-def _n_copies(dic):
-    """The blocking copies `_to_host(dic)` makes."""
-    return sum(len(v) if k == 'yaw' else 1 for k, v in dic.items())
-
-
 # Arrays laid out in one staging block start on multiples of this, the
 # caching device allocator's alignment, so a view of the block on the device
 # is aligned as a fresh tensor is and every kernel takes the same path.
@@ -225,7 +208,7 @@ def _pow2(size):
 
 
 class _Staging:
-    """The host memory of one engine's staged dispatches, reused from chunk
+    """The host memory of one engine's dispatches, reused from chunk
     to chunk. Buffers: uint8 tensors from PyTorch's caching host allocator
     (pinned on a card), each lent to one dispatch and given back, with the
     event after its last copy, when the dispatch's finalize has read it or
@@ -443,10 +426,8 @@ class Loco:
         # counts them; serve's /healthz and /metrics export both.
         self.n_dispatches = 0
         self.n_dispatches_int8 = 0
-        # `forward_batch_async` stages its copies (one pinned block in, one
-        # out, neither blocking the host) on a card without a mesh; on the
-        # CPU and under a mesh it copies array by array, blocking.
-        self.staged = self.device.type == 'cuda' and mesh is None
+        # The host memory of the dispatch's copies, one block in and one
+        # out, neither blocking the host (pinned on a card).
         self.staging = _Staging(pin=self.device.type == 'cuda')
 
     def _count_dispatch(self, n_rows):
@@ -454,29 +435,22 @@ class Loco:
         if _int8_routes(self.mlp_weights, n_rows):
             self.n_dispatches_int8 += 1
 
-    def _mono_forward(self, kps, kk):
-        """Keypoints (m, 3, 17) with kk (3, 3), or an image batch (B, m, 3,
-        17) with kk (B, 3, 3), on the device -> the decoded output dict over
-        all B*m rows."""
-        if self.net == 'monoloco':
-            inputs = preprocess_monoloco(kps, kk, zero_center=True)
-            raw = _mlp_forward(self.mlp_weights, inputs, self.arch)
-            return {'d': raw[:, 0:1], 'bi': unnormalize_bi(raw)}
-        inputs = preprocess_monoloco(kps, kk)
-        return self._decode_mono(_mlp_forward(
-            self.mlp_weights, inputs.reshape(-1, inputs.shape[-1]), self.arch))
-
     def _decode_mono(self, raw):
+        if self.net == 'monoloco':
+            return {'d': raw[:, 0:1], 'bi': unnormalize_bi(raw)}
         return extract_outputs_mono(raw) if self.net == 'monoloco_p' else extract_outputs(raw)
 
     def _mono_flat(self, kps, kk, cells, mc=None):
         """An image batch on the device: kps (B, m, 3, 17), kk (B, 3, 3) and
         cells (rows,) int32, each flat row's cell in the (B m) grid: the real
-        detections image by image (`_mono_cells`), then cell 0 ->
+        detections image by image (`_mono_cells`), then cell 0; under a mesh
+        every cell of the rank's images ->
         (the decoded output dict over the rows, and with MC dropout their
         epistemic std (rows,), else None). The MLP and the MC passes run
-        the gathered rows only; a padded cell's output is never used."""
-        x = preprocess_monoloco(kps, kk)
+        the gathered rows only; a padded cell's output is never used. The
+        legacy 'monoloco' net takes zero-centred inputs and decodes to
+        {'d', 'bi'}."""
+        x = preprocess_monoloco(kps, kk, zero_center=self.net == 'monoloco')
         x = x.reshape(-1, x.shape[-1]).index_select(0, cells)
         dic = self._decode_mono(_mlp_forward(self.mlp_weights, x, self.arch))
         if not self._mc_on():
@@ -560,43 +534,11 @@ class Loco:
         (pred, egocentric) pair; stereo adds 'aux' and 'aux_idx', the right
         pose chosen per left pose). 'epi' is the MC-dropout std with
         n_dropout > 0 on a mono net (`mc`: injected draws for `mc_rows`,
-        over the padded bucket), else zeros."""
+        over the padded bucket), else zeros. A batch of one, computed on
+        this rank alone under a mesh: it makes no collective."""
         if keypoints is None or len(keypoints) == 0:
             return None
-        kps = np.asarray(keypoints, np.float32)
-        m = kps.shape[0]
-        bm = _bucket(m)
-        kk_dev = torch.as_tensor(np.asarray(kk, np.float32), device=self.device)
-        epi = None
-        with torch.inference_mode():
-            if self.net == 'monstereo':
-                if keypoints_r is None or len(keypoints_r) == 0:
-                    kps_r = kps[0:1].copy()
-                else:
-                    kps_r = np.asarray(keypoints_r, np.float32)
-                r = kps_r.shape[0]
-                br = _bucket(r)
-                poses = np.zeros((1, bm + br), bool)
-                poses[0, :m] = poses[0, bm:bm + r] = True
-                self._count_dispatch(_flat_rows(m * r))
-                dic, best = self._stereo_forward(
-                    torch.from_numpy(_pad_rows(kps, bm)[None]).to(self.device),
-                    torch.from_numpy(_pad_rows(kps_r, br)[None]).to(self.device),
-                    torch.from_numpy(poses).to(self.device), kk_dev[None], m * r)
-                dic['aux_idx'] = best[0]
-            else:
-                self._count_dispatch(bm)
-                kps_dev = torch.from_numpy(_pad_rows(kps, bm)).to(self.device)
-                dic = self._mono_forward(kps_dev, kk_dev)
-                if self._mc_on():
-                    x = preprocess_monoloco(kps_dev, kk_dev, zero_center=self.net == 'monoloco')
-                    pos = torch.arange(bm, device=self.device)
-                    epi = self.mc_rows(x, pos, bm, mc)[:m].cpu().numpy()
-            dic = _to_host(dic)
-        dic_out = {k: (v[0][:m], v[1][:m]) if k == 'yaw' else v[:m]
-                   for k, v in dic.items()}
-        dic_out['epi'] = [0.] * m if epi is None else epi
-        return dic_out
+        return self._dispatch([keypoints], [kk], [keypoints_r], mc, None)()[0]
 
     def forward_batch(self, keypoints_list, kk_list, keypoints_r_list=None, mc=None):
         """Run many images in one dispatch (see forward_batch_async)."""
@@ -616,72 +558,61 @@ class Loco:
 
         CUDA launches are asynchronous, so the caller can prepare the next
         chunk or write files before finalize() waits for this one. Images pad
-        to shared detection buckets, as in the JAX package; without a mesh
-        the MLP and the MC passes run one flat row a real detection (mono,
-        `_mono_flat`, at most the padded grid's rows) or a real pair
-        (stereo), rounded up to the row tile.
+        to shared detection buckets, as in the JAX package; the MLP and the
+        MC passes run one flat row a real detection (mono, `_mono_flat`, at
+        most the padded grid's rows; under a mesh the rank's share of that
+        grid) or a real pair (stereo), rounded up to the row tile.
 
-        On a card without a mesh (`staged`) nothing here blocks the host on
-        the device. The padded arrays are numpy views of one zeroed pinned
-        block, copied to the device without blocking; the outputs are
-        enqueued for the host right after the launches, into one pinned
-        buffer behind an event of this dispatch's own (`_HostCopy`). So
-        finalize() waits for this chunk's work and copies only, never for a
-        chunk dispatched after it. Closures may be finalized in any order,
-        on any thread, or dropped: either gives the two buffers back to the
-        engine's pool (`_Staging`), which lends them again once their copies
-        are done, so a steady loop allocates no pinned memory. Results own
-        their memory: no returned array aliases a buffer that a later
-        dispatch reuses. On the CPU and under a mesh the arrays go one by
-        one, blocking.
+        Nothing here blocks the host on the device. The padded arrays are
+        numpy views of one zeroed host block (pinned on a card), copied to
+        the device in one copy without blocking; under a mesh each rank
+        copies the whole block and slices its images on the device. The
+        outputs (gathered under a mesh) are enqueued for the host right
+        after the launches, into one host buffer behind an event of this
+        dispatch's own (`_HostCopy`). So finalize() waits for this chunk's
+        work and copies only, never for a chunk dispatched after it.
+        Closures may be finalized in any order, on any thread, or dropped:
+        either gives the two buffers back to the engine's pool (`_Staging`),
+        which lends them again once their copies are done, so a steady loop
+        allocates no new host memory. Results own their memory: no returned
+        array aliases a buffer that a later dispatch reuses.
 
         With tracing on (`utils/trace.py`) the call is a `loco.dispatch` span
         holding `loco.bucket` (the buckets and the padded host arrays),
-        `loco.h2d` (the copies to the device: staged, one enqueued copy of
-        the block; else the blocking copies) and `loco.launch` (the forward,
-        the gather and the MC passes, and staged the outputs' copies to the
-        host, all enqueued); its counters are `rows_useful` (sum L, or L x
-        R, a frame), `rows_run` (the rows the MLP runs: the flat pairs
-        rounded up to the row tile; mono the flat detections so rounded, at
-        most the padded bucket B m, and under a mesh that bucket of a rank),
-        both x (1 + n_dropout) with MC, and `h2d_copies`. finalize() is a
-        `loco.finalize` span of the same dispatch id, counting `d2h_copies`,
-        holding `loco.wait`, `loco.d2h` and `loco.unpack` (the per-image
-        slicing). `loco.wait` is this dispatch's own device work: staged, a
-        sync on the event after its copies to the host, made on every call;
-        else, on a card, a sync on an event recorded after its launches,
-        made only while tracing. `loco.d2h` is, staged, the copy out of the
-        pinned buffer into ordinary arrays; else the blocking copies to the
-        host, which also wait behind whatever was queued on the stream after
-        this work. `h2d_copies` and `d2h_copies` count the copies that block
-        the host on the device: 0 and 0 staged; else one a host array and
-        one an output tensor ('yaw' two, MC's 'epi' one), 4 and 11 for
-        stereo, 3 and 10 for mono with MC (its flat cells the third array;
-        under a mesh 2 and 10).
+        `loco.h2d` (the one enqueued copy of the block to the device) and
+        `loco.launch` (the forward, the gather and the MC passes, and the
+        outputs' copies to the host, all enqueued); its counters are
+        `rows_useful` (sum L, or L x R, a frame), `rows_run` (the rows the
+        MLP runs: the flat pairs rounded up to the row tile; mono the flat
+        detections so rounded, at most the padded bucket B m, and under a
+        mesh that bucket of a rank), both x (1 + n_dropout) with MC, and
+        `h2d_copies`. finalize() is a `loco.finalize` span of the same
+        dispatch id, counting `d2h_copies`, holding `loco.wait` (a sync on
+        the event after this dispatch's copies to the host), `loco.d2h` (the
+        copy out of the host buffer into ordinary arrays) and `loco.unpack`
+        (the per-image slicing). `h2d_copies` and `d2h_copies` count the
+        copies that block the host on the device: 0 and 0.
         """
-        if self.net not in ('monoloco_pp', 'monoloco_p', 'monstereo'):
-            raise ValueError("forward_batch supports the monoloco_pp, monoloco_p and "
-                             "monstereo nets")
+        return self._dispatch(keypoints_list, kk_list, keypoints_r_list, mc, self.mesh)
+
+    def _dispatch(self, keypoints_list, kk_list, keypoints_r_list, mc, mesh):
+        """`forward_batch_async` over `mesh` (None: this rank alone)."""
         n_img = len(keypoints_list)
         if n_img == 0:
             return lambda: []
         stereo = self.net == 'monstereo'
-        # Mono runs flat rows but under a mesh, whose gather takes equal
-        # pieces from every rank.
-        flat = not stereo and self.mesh is None
-        staged = self.staged
         with trace.span('loco.dispatch') as root:
             with trace.span('loco.bucket'):
                 counts = [0 if k is None else len(k) for k in keypoints_list]
                 m_bucket = _bucket(max(max(counts), 1))
                 b_bucket = _bucket(n_img, minimum=1)
-                dp = 1 if self.mesh is None else self.mesh.dp
+                dp = 1 if mesh is None else mesh.dp
                 if dp > 1:
                     # The image axis splits over the data ranks: pad the batch
                     # bucket up to a multiple of them.
                     b_bucket = max(b_bucket, dp)
                     b_bucket += (-b_bucket) % dp
-                lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, self.mesh)
+                lo, hi = (0, b_bucket) if dp == 1 else row_range(b_bucket, mesh)
                 specs = [((b_bucket, m_bucket, 3, 17), torch.float32),
                          ((b_bucket, 3, 3), torch.float32)]
                 if stereo:
@@ -691,25 +622,27 @@ class Loco:
                     r_bucket = _bucket(max(max(counts_r), 1))
                     specs += [((b_bucket, r_bucket, 3, 17), torch.float32),
                               ((b_bucket, m_bucket + r_bucket), torch.bool)]
-                if flat:
-                    rows = _mono_rows(counts, b_bucket, m_bucket)
-                    specs.append(((rows,), torch.int32))
-                if staged:
-                    # One zeroed host block (pinned on a card) holds every
-                    # array; the arrays are numpy views of it.
-                    offsets, size = _layout(specs)
-                    block = self.staging.take(size)
-                    raw = block.numpy()[:size]
-                    raw.fill(0)
-                    host = _views(raw, specs, offsets)
                 else:
-                    host = [torch.zeros(shape, dtype=dtype).numpy() for shape, dtype in specs]
+                    # Under a mesh the rank's share of the padded grid: the
+                    # gather takes equal pieces from every rank.
+                    rows = ((hi - lo) * m_bucket if mesh is not None
+                            else _mono_rows(counts, b_bucket, m_bucket))
+                    specs.append(((rows,), torch.int32))
+                # One zeroed host block (pinned on a card) holds every array;
+                # the arrays are numpy views of it.
+                offsets, size = _layout(specs)
+                block = self.staging.take(size)
+                raw = block.numpy()[:size]
+                raw.fill(0)
+                host = _views(raw, specs, offsets)
                 kps, kks = host[0], host[1]
                 kks[:] = np.eye(3)
                 for i, (k, kk) in enumerate(zip(keypoints_list, kk_list)):
                     if counts[i]:
                         kps[i, :counts[i]] = np.asarray(k, np.float32)
                     kks[i] = np.asarray(kk, np.float32)
+                # Each image's first output row.
+                starts = range(0, n_img * m_bucket, m_bucket)
                 if stereo:
                     # Which poses are real: an image's left ones, then its right.
                     kps_r, poses = host[2], host[3]
@@ -723,103 +656,68 @@ class Loco:
                             # No right detections: the first left pose stands in.
                             kps_r[i, 0] = kps[i, 0]
                             poses[i, m_bucket] = True
-                if flat:
+                elif mesh is not None:
+                    host[2][:] = np.arange(rows)
+                else:
                     # Each flat row's cell in the (B m) grid; the rows after
                     # the last detection keep cell 0.
                     cells = _mono_cells(counts, m_bucket)
                     host[2][:cells.size] = cells
-                    starts = np.cumsum(counts) - counts       # each image's first flat row
+                    starts = np.cumsum(counts) - counts
 
-            def dev(arr):
-                """A host array on the device: under a mesh this rank's images
-                of it."""
-                if self.mesh is not None:
-                    arr = np.ascontiguousarray(arr[lo:hi])
-                return torch.from_numpy(arr).to(self.device)
-
-            def gather(dic):
-                if self.mesh is None:
-                    return dic
-                return {k: (tuple(gather_rows(t, self.mesh) for t in v) if k == 'yaw'
-                            else gather_rows(v, self.mesh)) for k, v in dic.items()}
-
-            epi_dev = done = out = None
             mine = range(lo, min(hi, n_img))
             if stereo:
                 n_pairs = sum(counts[i] * max(counts_r[i], 1) for i in mine)
                 rows = _flat_rows(n_pairs)
-            elif not flat:
-                rows = (hi - lo) * m_bucket
             with torch.inference_mode():
                 self._count_dispatch(rows)
                 with trace.span('loco.h2d'):
-                    if staged:
-                        on_dev = _views(block[:size].to(self.device, non_blocking=True),
-                                        specs, offsets)
-                    else:
-                        on_dev = [dev(arr) for arr in host]
+                    on_dev = _views(block[:size].to(self.device, non_blocking=True),
+                                    specs, offsets)
+                    if mesh is not None:
+                        # This rank's images of each per-image array.
+                        n = len(on_dev) if stereo else 2
+                        on_dev = [a[lo:hi] for a in on_dev[:n]] + on_dev[n:]
                 with trace.span('loco.launch'):
                     if stereo:
                         kps_dev, kks_dev, kps_r_dev, poses_dev = on_dev
-                        dic_dev, best = self._stereo_forward(kps_dev, kps_r_dev, poses_dev,
-                                                             kks_dev, n_pairs)
-                        dic_dev['aux_idx'] = best.reshape(-1)
-                        dic_dev = gather(dic_dev)
-                    elif flat:
-                        dic_dev, epi_dev = self._mono_flat(*on_dev, mc)
+                        dic, best = self._stereo_forward(kps_dev, kps_r_dev, poses_dev,
+                                                         kks_dev, n_pairs)
+                        dic['aux_idx'] = best.reshape(-1)
+                        epi = None
                     else:
-                        kps_dev, kks_dev = on_dev
-                        dic_dev = gather(self._mono_forward(kps_dev, kks_dev))
-                        if self._mc_on():
-                            x = preprocess_monoloco(kps_dev, kks_dev)
-                            x = x.reshape(-1, x.shape[-1])
-                            pos = torch.arange(x.shape[0], device=self.device) % m_bucket
-                            epi_dev = gather_rows(self.mc_rows(x, pos, m_bucket, mc), self.mesh)
-                    if staged:
-                        out = _HostCopy(dic_dev, epi_dev, self.device, self.staging, [block])
-                        n_d2h, dic_dev, epi_dev = 0, None, None
-                    else:
-                        n_d2h = _n_copies(dic_dev) + (epi_dev is not None)
-                        if root and self.device.type == 'cuda':
-                            done = torch.cuda.Event()
-                            done.record(torch.cuda.current_stream(self.device))
+                        dic, epi = self._mono_flat(*on_dev, mc)
+                    if mesh is not None:
+                        dic = {k: (tuple(gather_rows(t, mesh) for t in v) if k == 'yaw'
+                                   else gather_rows(v, mesh)) for k, v in dic.items()}
+                        if epi is not None:
+                            epi = gather_rows(epi, mesh)
+                    out = _HostCopy(dic, epi, self.device, self.staging, [block])
             if root:
                 passes = 1 + self.n_dropout if self._mc_on() else 1
                 useful = (sum(counts[i] * counts_r[i] for i in mine) if stereo
                           else sum(counts[i] for i in mine))
-                root.set(rows_useful=useful * passes, rows_run=rows * passes,
-                         h2d_copies=0 if staged else len(host))
+                root.set(rows_useful=useful * passes, rows_run=rows * passes, h2d_copies=0)
 
         def finalize():
             with trace.span('loco.finalize', dispatch=root.dispatch) as fin:
                 with trace.span('loco.wait'):
-                    if out is not None:
-                        out.wait()
-                    elif done is not None:
-                        done.synchronize()
+                    out.wait()
                 with trace.span('loco.d2h'):
-                    if out is not None:
-                        dic, epi = out.read()
-                    else:
-                        dic = _to_host(dic_dev)
-                        epi = None if epi_dev is None else epi_dev.cpu().numpy()
+                    dic, epi = out.read()
                 with trace.span('loco.unpack'):
                     outs = []
-                    for i in range(n_img):
-                        m = counts[i]
+                    for i, m in enumerate(counts):
                         if m == 0:
                             outs.append(None)
                             continue
-                        if flat:
-                            sl = slice(starts[i], starts[i] + m)
-                        else:
-                            sl = slice(i * m_bucket, i * m_bucket + m)
+                        sl = slice(starts[i], starts[i] + m)
                         dic_i = {k: (v[0][sl], v[1][sl]) if k == 'yaw' else v[sl]
                                  for k, v in dic.items()}
                         dic_i['epi'] = [0.] * m if epi is None else epi[sl]
                         outs.append(dic_i)
                 if fin:
-                    fin.set(d2h_copies=n_d2h)
+                    fin.set(d2h_copies=0)
             return outs
 
         return finalize

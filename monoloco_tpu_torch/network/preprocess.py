@@ -16,7 +16,8 @@ import os
 import numpy as np
 import torch
 
-from ..geometry import get_keypoints, open_annotations, pixel_to_camera
+# get_keypoints is importable from here, as from the JAX package's module.
+from ..geometry import get_keypoints, open_annotations, pixel_to_camera  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
@@ -57,11 +58,9 @@ def preprocess_monoloco(keypoints, kk, zero_center=False):
         kk = kk[:, None]                                   # (B, 1, 3, 3)
     xy1_all = pixel_to_camera(kps[..., 0:2, :], kk, 10)    # (..., m, 17, 3)
     if zero_center:
-        if kps.ndim != 3:
-            raise ValueError("zero_center takes one image's (m, 3, 17) keypoints")
-        uv_center = get_keypoints(kps, mode='center')
-        xy1_center = pixel_to_camera(uv_center, kk, 10)    # (m, 3)
-        xy1_all = xy1_all - xy1_center[:, None, :]
+        xy = kps[..., 0:2, :]
+        uv_center = (xy.amax(dim=-1) + xy.amin(dim=-1)) / 2.0     # (..., m, 2)
+        xy1_all = xy1_all - pixel_to_camera(uv_center[..., None, :], kk, 10)
     return xy1_all[..., 0:2].reshape(xy1_all.shape[:-2] + (-1,))
 
 

@@ -26,9 +26,8 @@ counted (`dropped()`) and not kept. Nothing is written to a file here.
 The engine's spans and counters are listed in `Loco.forward_batch_async`'s
 docstring (network/engine.py). Its copy counters, `h2d_copies` on
 `loco.dispatch` and `d2h_copies` on `loco.finalize`, count the copies that
-block the host on the device the engine runs on: 0 on a card, where the
-copies are staged through pinned memory and never block; on the CPU and
-under a mesh, one a padded array in and one an output tensor out.
+block the host on the device: 0 on every device, where the copies go
+through one host block each way and never block.
 """
 
 import heapq

@@ -262,7 +262,15 @@ def test_hyp_core_line_matches_the_jax_tool(monkeypatch, capsys):
     monkeypatch.setattr(jax_tool, 'EPOCHS', 2)
     jax_tool.run_core()
     jax_keys = _core_keys(capsys.readouterr().out)
-    record = bench_hyp_search.run_core(epochs=2, hidden_size=32, disable_cuda=True)
+    # Hundreds of tiny training steps. Each of the suite's workers starts
+    # one torch thread a core, and their pools contend: the port half ran
+    # 30x slower in the suite than alone. Alone, one thread is faster too.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        record = bench_hyp_search.run_core(epochs=2, hidden_size=32, disable_cuda=True)
+    finally:
+        torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert _core_keys(out) == jax_keys == ['vmapped_24trials', 'serial_24trials',
                                            'ratio_serial_over_vmapped', 'winner_same']

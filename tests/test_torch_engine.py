@@ -11,6 +11,7 @@ max (loose) error, since a last-ulp difference can flip one quantization tie.
 import json
 import os
 import shutil
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -189,7 +190,9 @@ def test_async_batch_matches_per_image_forward():
 @pytest.mark.parametrize('net,out_dim', [('monoloco_p', 9), ('monoloco', 2)])
 def test_legacy_mono_nets_match_jax(net, out_dim):
     """The legacy MonoLoco nets (single-Linear head, hidden 256) through
-    both engines: per-image forward, and the batched path for monoloco_p."""
+    both engines: per-image forward, and the port's batched path against
+    the JAX engine's batch for monoloco_p and, since the JAX batch refuses
+    the 'monoloco' net, against its per-image forward for that one."""
     from monoloco_tpu.models import init_monoloco_params
     params, bn = init_monoloco_params(jax.random.PRNGKey(1), 34, out_dim, 256, 3)
     params = jax.tree_util.tree_map(np.array, params)
@@ -199,9 +202,39 @@ def test_legacy_mono_nets_match_jax(net, out_dim):
     kps, kks = _toy_batch(n_img=3, seed=9)
     for k, kk in zip(kps, kks):
         _assert_dicts_close(net_t.forward(k, kk), jnet.forward(k, kk))
-    if net == 'monoloco_p':
-        for ours, ref in zip(net_t.forward_batch(kps, kks), jnet.forward_batch(kps, kks)):
-            _assert_dicts_close(ours, ref)
+    refs = (jnet.forward_batch(kps, kks) if net == 'monoloco_p'
+            else [jnet.forward(k, kk) for k, kk in zip(kps, kks)])
+    outs = net_t.forward_batch(kps, kks)
+    assert len(outs) == len(refs)
+    for ours, ref in zip(outs, refs):
+        _assert_dicts_close(ours, ref)
+
+
+@pytest.mark.parametrize('kind', ['mono_mc', 'stereo'])
+def test_forward_under_a_mesh_makes_no_collective(monkeypatch, kind):
+    """`forward` computes one image on its own rank: on a Loco whose mesh
+    stands in for rank 0 of dp2 it never calls `gather_rows`, and its
+    outputs, epi included, are the engine's without a mesh bit for bit."""
+    stereo = kind == 'stereo'
+    params, bn = (_toy_params() if not stereo
+                  else jax_init(jax.random.PRNGKey(3), 68, 10, 128, 2))
+    model = params_from_numpy(jax.tree_util.tree_map(np.array, params),
+                              jax.tree_util.tree_map(np.array, bn))
+    opts = {'mode': 'stereo'} if stereo else {'mode': 'mono', 'n_dropout': 3}
+    mesh = SimpleNamespace(dp=2, tp=1, data_rank=0, device=torch.device('cpu'))
+    calls = []
+    monkeypatch.setattr(engine, 'gather_rows', lambda *a: calls.append(a))
+    on_mesh = Loco(model=model, mesh=mesh, **opts)
+    alone = Loco(model=model, device='cpu', **opts)
+    kps, kks = _toy_batch(n_img=2, seed=10)
+    right = kps[1] if stereo else None
+    ours = on_mesh.forward(kps[0], kks[0], keypoints_r=right)
+    ref = alone.forward(kps[0], kks[0], keypoints_r=right)
+    assert calls == [] and on_mesh.n_dispatches == 1
+    assert sorted(ours) == sorted(ref)
+    for key, value in ref.items():
+        for a, b in zip(*((o[key] if key == 'yaw' else (o[key],)) for o in (ours, ref))):
+            np.testing.assert_array_equal(a, b, err_msg=key)
 
 
 def test_refuses_what_is_not_ported(monkeypatch):

@@ -398,9 +398,7 @@ def test_stereo_engine_flat_pairs_are_the_padded_grid_bit_for_bit(cuda_device, m
     frames, Poisson 22.64 people) and on the edge mixes of
     tests/torch_stereo_grid.py (ties included); every dispatch runs the
     precision's kernel, and a steady chunk makes at most one
-    synchronization, finalize's on its own event, where the blocking path
-    (`staged` off) makes its 15 (4 copies in, 11 copies out; the padded grid
-    made 2 more in `torch.linalg.inv`)."""
+    synchronization, finalize's on its own event."""
     import torch_stereo_grid as grid
     from monoloco_tpu_torch.network import Loco
     monkeypatch.setenv('MONOLOCO_TPU_PRECISION', precision)
@@ -419,18 +417,15 @@ def test_stereo_engine_flat_pairs_are_the_padded_grid_bit_for_bit(cuda_device, m
         grid.assert_same(outs, ref, exact=True)
     np.testing.assert_array_equal(net.forward_batch(*mixes[-1])[0]['aux_idx'], 0)
     assert net.n_dispatches_int8 == (net.n_dispatches if precision == 'int8' else 0)
-    for staged, most in ((True, 1), (False, 15)):
-        net.staged = staged
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter('always')
-            torch.cuda.set_sync_debug_mode('warn')
-            try:
-                net.forward_batch_async(*crowds[0])()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = [w for w in caught if 'called a synchronizing' in str(w.message)]
-        assert len(syncs) <= most and (staged or len(syncs) == most), \
-            [str(w.message) for w in syncs]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            net.forward_batch_async(*crowds[0])()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if 'called a synchronizing' in str(w.message)]
+    assert len(syncs) <= 1, [str(w.message) for w in syncs]
 
 
 def _mono_keypoints(m, seed):

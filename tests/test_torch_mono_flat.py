@@ -8,8 +8,8 @@ that fills its bucket, 128 and 129 detections, and crowded frames whose
 grid holds several tiles, for MonoLoco++ and the monoloco_p net: every
 detection's outputs and epi equal the padded (B, m) grid's
 (tests/torch_mono_grid.py) up to float order; the MC draws are the
-bucket's; `rows_run` counts the flat rows; staged, the outputs go to the
-host as the flat rows, not the padded grid.
+bucket's; `rows_run` counts the flat rows; the outputs go to the host as
+the flat rows, not the padded grid.
 """
 
 import numpy as np
@@ -84,8 +84,8 @@ def test_rows_run_counts_the_flat_rows(mc_net, mix):
 
 @pytest.mark.parametrize('mix', ['empty_frames', 'tile_plus_one', 'crowded_frame'])
 def test_staged_outputs_leave_as_the_flat_rows(mc_net, monkeypatch, mix):
-    """Staged (ordinary memory on the CPU), every output leaf goes to the
-    host with one row a flat row, epi too."""
+    """Every output leaf goes to the host (ordinary memory on the CPU) with
+    one row a flat row, epi too."""
     made = []
 
     class Recorded(engine._HostCopy):
@@ -94,12 +94,7 @@ def test_staged_outputs_leave_as_the_flat_rows(mc_net, monkeypatch, mix):
             made.append(self)
 
     monkeypatch.setattr(engine, '_HostCopy', Recorded)
-    args = grid.frames(grid.MIXES[mix])
-    mc_net.staged = True
-    try:
-        mc_net.forward_batch(*args)
-    finally:
-        mc_net.staged = False
+    mc_net.forward_batch(*grid.frames(grid.MIXES[mix]))
     (out,) = made
     rows = grid.ROWS[mix]
     assert {shape[0] for *_, shape in out.leaves} == {rows}

@@ -1,17 +1,19 @@
 """The staged copies of `Loco.forward_batch_async` on the CPU.
 
-On a card without a mesh the engine stages its copies (`Loco.staged`): the
-padded arrays are views of one host block, copied to the device in one
-non-blocking copy, and the outputs go back, enqueued right after the
-launches, into one host buffer (`engine._HostCopy`). Pinned memory and the
-event need a card (tests/test_torch_staged_cuda.py); here the same code runs
-with ordinary host memory, so its layout and bookkeeping are checked:
-outputs bit for bit the blocking path's, keys, dtypes and shapes included,
+On every device the engine stages its copies: the padded arrays are views
+of one host block, copied to the device in one non-blocking copy, and the
+outputs go back, enqueued right after the launches, into one host buffer
+(`engine._HostCopy`). Pinned memory and the event need a card
+(tests/test_torch_staged_cuda.py); here the same code runs with ordinary
+host memory, so its layout and bookkeeping are checked: outputs, keys,
+dtypes and shapes included, those of the padded-grid evaluations
+(tests/torch_stereo_grid.py, tests/torch_mono_grid.py) up to float order,
 for MonStereo, MonoLoco++ with MC dropout and the monoloco_p net; no
-blocking copy counted; aligned views; every leaf read back in order into
-memory of its own; the engine's buffers (`engine._Staging`) lent again only
-once their copies are done; closures finalized in any order, on another
-thread, or never, each giving its buffers back.
+blocking copy counted and the row counters kept; aligned views; every leaf
+read back in order into memory of its own; the engine's buffers
+(`engine._Staging`) lent again only once their copies are done; closures
+finalized in any order, on another thread, or never, each giving its
+buffers back.
 """
 
 import copy
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mono_grid as mono_grid
 import torch_stereo_grid as grid
 from monoloco_tpu_torch.models import init_loco_params
 from monoloco_tpu_torch.network import Loco, engine
@@ -29,6 +32,8 @@ from monoloco_tpu_torch.utils import trace
 
 KINDS = ('stereo', 'mono_mc', 'monoloco_p')
 CHUNKS = ('crowd', 'empty_frames', 'unequal', 'no_right_poses')
+# f32 throughout; only the order of the sums may differ from the grid's.
+RTOL, EPI_RTOL = 1e-5, 1e-4
 
 
 @pytest.fixture(scope='module')
@@ -55,14 +60,6 @@ def _chunk(kind, name, seed=0):
     return args if kind == 'stereo' else args[:2]
 
 
-def _run(net, args, staged):
-    net.staged = staged
-    try:
-        return net.forward_batch(*args)
-    finally:
-        net.staged = False
-
-
 def _flat(outs):
     for i, out in enumerate(outs):
         if out is None:
@@ -87,28 +84,39 @@ def _assert_identical(outs, refs):
 @pytest.mark.parametrize('name', CHUNKS)
 @pytest.mark.parametrize('kind', KINDS)
 def test_staged_is_the_blocking_path_bit_for_bit(engines, kind, name):
+    """The staged outputs are the padded-grid evaluation's, within f32
+    tolerance (the grid runs other rows, so its sums may go in another
+    order)."""
     net = engines[kind]
-    assert not net.staged                     # the CPU copies array by array
     args = _chunk(kind, name, seed=len(name))
-    _assert_identical(_run(net, args, True), _run(net, args, False))
+    outs = net.forward_batch(*args)
+    if kind == 'stereo':
+        grid.assert_same(outs, grid.padded_grid(net, *args), exact=False, tol=RTOL)
+    else:
+        mono_grid.assert_close(outs, mono_grid.padded_grid(net, *args), RTOL, EPI_RTOL)
 
 
 @pytest.mark.parametrize('kind', KINDS)
 def test_staged_counts_no_blocking_copy(engines, kind):
-    """The staged path keeps the span tree and the row counters, and counts
-    0 copies that block the host, in and out."""
+    """The dispatch keeps the span tree and the row counters, and counts 0
+    copies that block the host, in and out."""
     args = _chunk(kind, 'unequal')
-    counts = {}
-    for staged in (True, False):
-        trace.reset()
-        trace.enable()
-        _run(engines[kind], args, staged)
-        trace.disable()
-        counts[staged] = {r['name']: r['attrs'] for r in trace.records()}
-    assert sorted(counts[True]) == sorted(counts[False])
-    assert counts[True]['loco.dispatch'] == {**counts[False]['loco.dispatch'], 'h2d_copies': 0}
-    assert counts[True]['loco.finalize'] == {'d2h_copies': 0}
-    assert counts[False]['loco.dispatch']['h2d_copies'] == (4 if kind == 'stereo' else 3)
+    trace.enable()
+    engines[kind].forward_batch(*args)
+    trace.disable()
+    counts = {r['name']: r['attrs'] for r in trace.records()}
+    left = args[0]
+    if kind == 'stereo':
+        useful = sum(len(k) * (0 if r is None else len(r)) for k, r in zip(left, args[2]))
+        ran = engine._flat_rows(grid.n_pairs(left, args[2]))
+    else:
+        useful, ran = sum(len(k) for k in left), mono_grid.rows([len(k) for k in left])
+    passes = 1 + engines[kind].n_dropout
+    assert sorted(counts) == ['loco.bucket', 'loco.d2h', 'loco.dispatch', 'loco.finalize',
+                              'loco.h2d', 'loco.launch', 'loco.unpack', 'loco.wait']
+    assert counts['loco.dispatch'] == {'rows_useful': useful * passes,
+                                       'rows_run': ran * passes, 'h2d_copies': 0}
+    assert counts['loco.finalize'] == {'d2h_copies': 0}
 
 
 def test_layout_aligns_every_array():
@@ -209,23 +217,19 @@ def test_results_hold_their_memory_and_give_it_back_when_dropped():
 def test_closures_finalize_in_any_order_on_any_thread_or_never(engines, kind):
     net = engines[kind]
     chunks = [_chunk(kind, 'crowd', seed=s) for s in range(4)]
-    refs = [_run(net, args, False) for args in chunks]
-    net.staged = True
-    try:
-        fins = [net.forward_batch_async(*args) for args in chunks]
-        fins[1] = None
-        gc.collect()
-        results = {}
-        thread = threading.Thread(target=lambda: results.__setitem__(3, fins[3]()))
-        thread.start()
-        thread.join(timeout=60)
-        assert not thread.is_alive()
-        results[2] = fins[2]()
-        results[0] = fins[0]()
-        kept = copy.deepcopy(results[0])
-        later = [net.forward_batch(*args) for args in chunks[1:]]
-    finally:
-        net.staged = False
+    refs = [net.forward_batch(*args) for args in chunks]
+    fins = [net.forward_batch_async(*args) for args in chunks]
+    fins[1] = None
+    gc.collect()
+    results = {}
+    thread = threading.Thread(target=lambda: results.__setitem__(3, fins[3]()))
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    results[2] = fins[2]()
+    results[0] = fins[0]()
+    kept = copy.deepcopy(results[0])
+    later = [net.forward_batch(*args) for args in chunks[1:]]
     for i in (0, 2, 3):
         _assert_identical(results[i], refs[i])
     _assert_identical(results[0], kept)

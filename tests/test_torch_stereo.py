@@ -304,7 +304,7 @@ def test_flat_stereo_dispatch_matches_jax_and_the_padded_grid(nets, mix):
     engine (its padded m x r program) and the padded-grid evaluation of the
     same batch (`torch_stereo_grid.padded_grid`); of two equal right poses
     the first wins; the MLP runs sum L x R rows rounded up to the 128-row
-    tile, with 4 + 11 blocking copies."""
+    tile, with no blocking copy."""
     net, jnet = nets
     left, kks, right = grid.frames(grid.MIXES[mix], seed=len(mix))
     trace.reset()
@@ -330,8 +330,8 @@ def test_flat_stereo_dispatch_matches_jax_and_the_padded_grid(nets, mix):
     useful = sum(len(k) * (0 if r is None else len(r)) for k, r in zip(left, right))
     assert recs['loco.dispatch'] == {'rows_useful': useful,
                                      'rows_run': _tile_rows(grid.n_pairs(left, right)),
-                                     'h2d_copies': 4}
-    assert recs['loco.finalize'] == {'d2h_copies': 11}
+                                     'h2d_copies': 0}
+    assert recs['loco.finalize'] == {'d2h_copies': 0}
 
 
 @pytest.mark.parametrize('precision', ['int8', 'bfloat16'])

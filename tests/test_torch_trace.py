@@ -32,15 +32,14 @@ KK = [[718.3351, 0., 600.3891], [0., 718.3351, 181.5122], [0., 0., 1.]]
 N_DROPOUT = 3
 # Frames of 3, 5 and 0 left poses (2, 6 and 0 right): 4 images padded, 8 x 8;
 # the MLP runs the 36 pairs in one 128-row tile, and the 8 mono detections
-# in the 4 x 8 grid's 32 rows, fewer than a tile. Mono copies its flat rows'
-# cells as a third array.
+# in the 4 x 8 grid's 32 rows, fewer than a tile. No copy blocks the host.
 LEFT, RIGHT = (3, 5, 0), (2, 6, 0)
 TREE = {'loco.dispatch': None, 'loco.bucket': 'loco.dispatch', 'loco.h2d': 'loco.dispatch',
         'loco.launch': 'loco.dispatch', 'loco.finalize': None, 'loco.wait': 'loco.finalize',
         'loco.d2h': 'loco.finalize', 'loco.unpack': 'loco.finalize'}
 # (rows_useful, rows_run, h2d_copies, d2h_copies) of the batch.
-COUNTS = {'stereo': (3 * 2 + 5 * 6, 128, 4, 11),
-          'mono_mc': ((3 + 5) * (1 + N_DROPOUT), 4 * 8 * (1 + N_DROPOUT), 3, 10)}
+COUNTS = {'stereo': (3 * 2 + 5 * 6, 128, 0, 0),
+          'mono_mc': ((3 + 5) * (1 + N_DROPOUT), 4 * 8 * (1 + N_DROPOUT), 0, 0)}
 
 
 @pytest.fixture(autouse=True)
@@ -141,7 +140,7 @@ def test_one_chunk_gives_the_span_tree_and_counters(engines, kind, how):
     useful, ran, h2d, d2h = COUNTS[kind]
     assert dispatch['attrs'] == {'rows_useful': useful, 'rows_run': ran, 'h2d_copies': h2d}
     assert fin['attrs'] == {'d2h_copies': d2h}
-    assert h2d + d2h == (15 if kind == 'stereo' else 13)
+    assert h2d + d2h == 0
     assert trace.counters(recs) == {'rows_useful': useful, 'rows_run': ran,
                                     'h2d_copies': h2d, 'd2h_copies': d2h}
     for r in recs:
@@ -306,7 +305,7 @@ def test_predict_profile_writes_the_spans(tmp_path):
     assert names == sorted(TREE)
     assert spans['clock'] == 'time.time_ns' and spans['idle_by_span_s'] == {}
     assert set(spans['counters']) == {'rows_useful', 'rows_run', 'h2d_copies', 'd2h_copies'}
-    assert spans['counters']['h2d_copies'] == 3
+    assert spans['counters']['h2d_copies'] == 0
     # The Chrome trace's `ts` counts microseconds from `baseTimeNanoseconds`
     # on the spans' clock: the batched chunk lies inside the traced run.
     base = chrome['baseTimeNanoseconds']

@@ -73,6 +73,11 @@ def n_pairs(left, right):
     return sum(len(k) * max(0 if r is None else len(r), 1) for k, r in zip(left, right))
 
 
+def _to_host(dic):
+    return {k: (tuple(t.cpu().numpy() for t in v) if k == 'yaw' else v.cpu().numpy())
+            for k, v in dic.items()}
+
+
 def padded_grid(net, left, kks, right):
     """Per-image output dicts (None for an image without poses) of the
     padded-grid evaluation of one batch on `net`'s weights and routing."""
@@ -105,7 +110,7 @@ def padded_grid(net, left, kks, right):
         selected = torch.take_along_dim(out4, best[:, :, None, None], dim=2)[:, :, 0]
         dic = extract_outputs(selected.reshape(b * m, -1))
         dic['aux_idx'] = best.reshape(-1)
-        dic = engine._to_host(dic)
+        dic = _to_host(dic)
     outs = []
     for i, n in enumerate(counts):
         sl = slice(i * m, i * m + n)
